@@ -1,0 +1,257 @@
+"""Single-device training engine (counterpart of ``otgan_tpu/engine.py``).
+
+One generator step and one critic step of the reference (``train.py:108-151``)
+as eager PyTorch on one device:
+
+* generator step: images -> critic features of fake and real batches ->
+  matching -> ``sum f_gen * sg(f_aa - f_ab)`` -> Adam descent -> EMA;
+* critic step: the same matching on critic features with gradients into
+  the critic, Adam with ``-lr`` (ascent, ``train.py:143``).
+
+The 5:1 schedule (step ``s`` is a critic step when ``s % (n + 1) == 0``) is
+a Python loop in :meth:`Engine.cycle`. Step functions take the latent as an
+argument, so a test can feed the JAX package's draw; without one they draw
+``U(-1, 1)`` from the state's ``torch.Generator``. Matching is float32 with
+TF32 off; model matmuls and convs run in ``cfg.compute_dtype``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from otgan_tpu_torch.config import TrainConfig, check_supported
+from otgan_tpu_torch.models import get_model
+from otgan_tpu_torch.models.dcgan import sample_latent
+from otgan_tpu_torch.nn.ema import ema_init, ema_update
+from otgan_tpu_torch.nn.layers import data_init, reset_parameters
+from otgan_tpu_torch.nn.optim import make_optimizer
+from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
+from otgan_tpu_torch.ops.losses import med_discriminator_loss, med_generator_loss
+from otgan_tpu_torch.ops.matching import (
+    calc_distance,
+    match_random,
+    match_single_batch,
+    match_two_batch,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for ``cpu``; never falls back."""
+    d = torch.device("cuda" if device is None else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (CLI: --device cpu) "
+            "to run on the CPU"
+        )
+    if d.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return d
+
+
+@dataclass
+class TrainState:
+    """Everything a step changes. Parameters live in the two modules; the
+    EMA shadow and optimizer moments are dicts keyed by parameter name."""
+
+    gen: nn.Module
+    disc: nn.Module
+    gen_ema: Dict[str, torch.Tensor]
+    gen_opt: Any
+    disc_opt: Any
+    step: int
+    rng: torch.Generator  # latent draws when a step is given none
+
+
+class StepMetrics(NamedTuple):
+    dist: torch.Tensor  # transport distance BEFORE the update (train.py:231)
+    entropy: torch.Tensor  # mean Sinkhorn entropy (utils/matching.py:57)
+
+
+@contextlib.contextmanager
+def _frozen(module: nn.Module):
+    """No parameter gradients for ``module`` (its input still gets one)."""
+    params = list(module.parameters())
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
+
+
+class Engine:
+    def __init__(self, cfg: TrainConfig, device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.family = get_model(cfg.model)
+        self.opt_init, opt_update = make_optimizer(cfg.optimizer)
+        if cfg.optimizer == "nesterov":
+            self.opt_update = functools.partial(opt_update, mom1=cfg.adam_mom1)
+        else:
+            self.opt_update = functools.partial(
+                opt_update, mom1=cfg.adam_mom1, mom2=cfg.adam_mom2
+            )
+        resolve_precision(cfg.matching_precision)
+        true_f32()
+        if self.compute_dtype == torch.float32:
+            # float32 model compute means float32 convs, not cuDNN's TF32
+            torch.backends.cudnn.allow_tf32 = False
+        self._matcher = self._make_matcher()
+
+    # -- matching mode dispatch (train.py:88-97) --
+    def _make_matcher(self):
+        cfg = self.cfg
+        if cfg.no_sinkhorn:
+            self.matcher_desc = "random (--no_sinkhorn ablation)"
+            return functools.partial(match_random, shard_size=max(cfg.batch_size, 1))
+        match = match_single_batch if cfg.single_batch else match_two_batch
+        kernel = "CUDA kernel" if cfg.use_pallas and self.device.type == "cuda" else "plain"
+        self.matcher_desc = (
+            f"{'single' if cfg.single_batch else 'two'}-batch on one device "
+            f"(Sinkhorn: {kernel})"
+        )
+        return functools.partial(
+            match,
+            lam=cfg.sinkhorn_lambda,
+            n_iters=cfg.nr_sinkhorn_iter,
+            cost_fn=cosine_cost,
+            use_pallas=cfg.use_pallas,
+            tol=cfg.sinkhorn_tol,
+        )
+
+    def _build_models(self):
+        opts = dict(nonlinearity=self.cfg.nonlinearity, compute_dtype=self.compute_dtype)
+        return self.family.make_generator(**opts), self.family.make_discriminator(**opts)
+
+    # -- init (the data-dependent init really runs) --
+    def init_state(self, seed: int, x_init) -> Tuple[TrainState, int]:
+        """Random V from ``seed``, then g and b from the batch ``x_init``
+        (uint8 or float NHWC) and as many latents. Returns the state and
+        the critic's feature count."""
+        cpu_rng = torch.Generator().manual_seed(seed)
+        gen, disc = self._build_models()
+        reset_parameters(disc, cpu_rng)
+        reset_parameters(gen, cpu_rng)
+        gen.to(self.device)
+        disc.to(self.device)
+        x = self.ingest(x_init)
+        if self.cfg.data_dependent_init:
+            f = data_init(disc, x)
+            data_init(gen, sample_latent(x.shape[0], cpu_rng).to(self.device))
+        else:
+            with torch.no_grad():
+                f = disc(x)
+        gen_params = dict(gen.named_parameters())
+        disc_params = dict(disc.named_parameters())
+        state = TrainState(
+            gen=gen,
+            disc=disc,
+            gen_ema=ema_init(gen_params),
+            gen_opt=self.opt_init({k: p.detach() for k, p in gen_params.items()}),
+            disc_opt=self.opt_init({k: p.detach() for k, p in disc_params.items()}),
+            step=0,
+            rng=torch.Generator(device=self.device).manual_seed(seed + 1),
+        )
+        return state, int(f.shape[-1])
+
+    def ingest(self, x) -> torch.Tensor:
+        """Images to the device in the compute dtype: uint8 ``[0, 255]``
+        crosses as bytes and becomes ``x / 127.5 - 1`` (f32, then rounded
+        once to the compute dtype) on the device; float images are cast."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        x = x.to(self.device, non_blocking=True)
+        if x.dtype == torch.uint8:
+            x = x.float() / 127.5 - 1.0
+        return x.to(self.compute_dtype)
+
+    def _latent(self, state: TrainState, batch: int, z) -> torch.Tensor:
+        if z is None:
+            return sample_latent(batch, state.rng, self.device)
+        if isinstance(z, np.ndarray):
+            z = torch.from_numpy(z)
+        return z.to(self.device, torch.float32)
+
+    # -- generator update (train.py:108-113 descent; EMA at :223) --
+    def gen_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
+        cfg = self.cfg
+        x = self.ingest(x_data)
+        z = self._latent(state, x.shape[0], z)
+        params = dict(state.gen.named_parameters())
+        with torch.no_grad():
+            f_dat = state.disc(x)
+        with _frozen(state.disc):
+            f_gen = state.disc(state.gen(z))
+        m = self._matcher(f_gen, f_dat)
+        loss = med_generator_loss(f_gen, m)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        dist = calc_distance(f_gen.detach(), f_dat, m)
+        del loss, f_gen
+        self.opt_update(params, dict(zip(params, grads)), state.gen_opt,
+                        cfg.learning_rate_gen)
+        ema_update(state.gen_ema, params, cfg.ema_decay)
+        state.step += 1
+        return state, StepMetrics(dist=dist, entropy=m.entropy)
+
+    # -- critic update: ascent via negative lr (train.py:115-130,143) --
+    def disc_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
+        cfg = self.cfg
+        x = self.ingest(x_data)
+        z = self._latent(state, x.shape[0], z)
+        x_fake = self.sample(state, z, ema=cfg.train_disc_against_ema)
+        params = dict(state.disc.named_parameters())
+        f_fake = state.disc(x_fake)
+        f_dat = state.disc(x)
+        m = self._matcher(f_fake, f_dat)
+        loss = med_discriminator_loss(f_fake, f_dat, m)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        dist = calc_distance(f_fake.detach(), f_dat.detach(), m)
+        del loss, f_fake, f_dat
+        self.opt_update(params, dict(zip(params, grads)), state.disc_opt,
+                        -cfg.learning_rate_disc)
+        state.step += 1
+        return state, StepMetrics(dist=dist, entropy=m.entropy)
+
+    def is_disc_step(self, step: int) -> bool:
+        """1 critic step per ``nr_gen_per_disc`` generator steps
+        (train.py:213-226), unless the critic is frozen."""
+        freeze = self.cfg.disc_freeze_after_steps
+        return step % (self.cfg.nr_gen_per_disc + 1) == 0 and (
+            freeze <= 0 or step < freeze
+        )
+
+    def cycle(self, state: TrainState, xs: Sequence,
+              zs: Optional[Sequence] = None) -> Tuple[TrainState, List[StepMetrics]]:
+        """Consecutive steps on the batches ``xs`` under the G:D schedule."""
+        mets = []
+        for i, x in enumerate(xs):
+            z = None if zs is None else zs[i]
+            step = self.disc_step if self.is_disc_step(state.step) else self.gen_step
+            state, met = step(state, x, z)
+            mets.append(met)
+        return state, mets
+
+    # -- sampling (train.py:72-75, x_gens / x_gens_ema) --
+    @torch.no_grad()
+    def sample(self, state: TrainState, z, ema: bool = False) -> torch.Tensor:
+        """Images from latents ``z`` (B, 100), or from ``z`` fresh draws when
+        ``z`` is an int; with ``ema`` the EMA weights generate."""
+        if isinstance(z, int):
+            z = sample_latent(z, state.rng, self.device)
+        else:
+            z = self._latent(state, len(z), z)
+        if ema:
+            return functional_call(state.gen, state.gen_ema, (z,))
+        return state.gen(z)

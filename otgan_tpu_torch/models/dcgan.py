@@ -1,0 +1,92 @@
+"""DCGAN generator and critic (counterpart of ``otgan_tpu/models/dcgan.py``,
+after the reference's ``models/dcgan.py``).
+
+Critic: four 5x5 weight-norm convs (128 -> 256 -> 512 -> 1024, stride-2
+downsampling, crelu pre-activations), a CReLU concat, an NHWC flatten and a
+row L2 normalisation: a unit feature of 4*4*2048 = 32768 values.
+
+Generator: latent ``u ~ U(-1, 1)^100`` -> dense to 2*4*4*1024 with a GLU
+gate -> (B, 4, 4, 1024) NHWC -> three (NN upsample, 5x5 conv, GLU) stages to
+32x32 -> a 5x5 conv to 3 channels with init_scale 0.1 -> tanh. The latent is
+an input, so a test can feed the JAX package's draw; :func:`sample_latent`
+draws it from a ``torch.Generator``.
+
+Layer names follow the JAX package's scope counters (``dense_0``,
+``conv2d_0``...), so parameter names map one to one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from otgan_tpu_torch.nn.layers import Conv2d, Dense, glu, l2_normalize_rows, save_point
+
+LATENT_DIM = 100
+
+
+def sample_latent(batch_size: int, generator: Optional[torch.Generator] = None,
+                  device="cpu") -> torch.Tensor:
+    """``U(-1, 1)^100`` latents (reference ``models/dcgan.py:30``)."""
+    u = torch.rand((batch_size, LATENT_DIM), generator=generator, device=device)
+    return u * 2.0 - 1.0
+
+
+class Discriminator(nn.Module):
+    def __init__(self, nonlinearity: str = "crelu",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cd = compute_dtype
+        self.conv2d_0 = Conv2d(3, 128, (5, 5), pre_activation=None, compute_dtype=cd)
+        self.conv2d_1 = Conv2d(128, 256, (5, 5), (2, 2), pre_activation=nonlinearity,
+                               compute_dtype=cd)
+        self.conv2d_2 = Conv2d(256, 512, (5, 5), (2, 2), pre_activation=nonlinearity,
+                               compute_dtype=cd)
+        self.conv2d_3 = Conv2d(512, 1024, (5, 5), (2, 2), pre_activation=nonlinearity,
+                               compute_dtype=cd)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images (B, 32, 32, 3) -> unit features (B, 32768)."""
+        x = self.conv2d_0(x)
+        x = save_point(self.conv2d_1(x), "disc_c2")
+        x = save_point(self.conv2d_2(x), "disc_c3")
+        x = save_point(self.conv2d_3(x), "disc_c4")
+        x = torch.relu(torch.cat([x, -x], dim=-1))
+        return l2_normalize_rows(x.reshape(x.shape[0], -1))
+
+
+class Generator(nn.Module):
+    def __init__(self, nonlinearity: str = "crelu",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        del nonlinearity  # the DCGAN generator has no pre-activations
+        cd = compute_dtype
+        self.dense_0 = Dense(LATENT_DIM, 2 * 4 * 4 * 1024, pre_activation=None,
+                             compute_dtype=cd)
+        self.conv2d_0 = Conv2d(1024, 2 * 512, (5, 5), upsample=True,
+                               pre_activation=None, compute_dtype=cd)
+        self.conv2d_1 = Conv2d(512, 2 * 256, (5, 5), upsample=True,
+                               pre_activation=None, compute_dtype=cd)
+        self.conv2d_2 = Conv2d(256, 2 * 128, (5, 5), upsample=True,
+                               pre_activation=None, compute_dtype=cd)
+        self.conv2d_3 = Conv2d(128, 3, (5, 5), pre_activation=None, init_scale=0.1,
+                               compute_dtype=cd)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        """Latents (B, 100) -> NHWC images (B, 32, 32, 3) in [-1, 1]."""
+        x = glu(self.dense_0(u), dim=1)
+        x = x.reshape(u.shape[0], 4, 4, 1024)
+        x = save_point(glu(self.conv2d_0(x)), "gen_g1")
+        x = save_point(glu(self.conv2d_1(x)), "gen_g2")
+        x = save_point(glu(self.conv2d_2(x)), "gen_g3")
+        return torch.tanh(self.conv2d_3(x))
+
+
+def make_discriminator(nonlinearity: str = "crelu", compute_dtype=torch.float32):
+    return Discriminator(nonlinearity, compute_dtype)
+
+
+def make_generator(nonlinearity: str = "crelu", compute_dtype=torch.float32):
+    return Generator(nonlinearity, compute_dtype)

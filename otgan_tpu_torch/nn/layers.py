@@ -1,0 +1,220 @@
+"""Weight-normalised layers with data-dependent init (counterpart of
+``otgan_tpu/nn/layers.py``, after the reference's ``utils/nn.py:89-338``).
+
+* Parameters are ``(V, g, b)`` with effective weight ``W = g * V / ||V||``,
+  the norm taken over every axis except the output one. V is stored in
+  PyTorch's layout: ``(out, in)`` for dense, OIHW for conv (the JAX package
+  stores ``(in, out)`` and HWIO; ``convert.py`` carries weights across).
+* Data-dependent init really runs: on the first forward after
+  :func:`data_init` marks a layer, ``g = init_scale / (std(pre) + 1e-10)``
+  and ``b = -mean(pre * g)`` over a real batch (population std).
+* The pre-activation (none/relu/elu/crelu/celu) is applied to the input
+  inside the layer; the 'c' variants concatenate ``[x, -x]`` on channels and
+  double the fan-in.
+* Activations are NHWC at every public function, as in the JAX package.
+  Inside, the NHWC tensor is viewed as a channels-last NCHW tensor (no
+  copy) for ``conv2d``.
+* ``compute_dtype`` casts the input and the weight before the matmul or
+  conv and upcasts the result to float32; weight-norm math stays float32.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+PRE_ACTIVATIONS = (None, "relu", "elu", "crelu", "celu")
+
+
+def apply_pre_activation(x: torch.Tensor, pre_activation: Optional[str]) -> torch.Tensor:
+    """Reference ``apply_pre_activation`` (``utils/nn.py:190-206``) on the
+    last (channel) axis."""
+    if pre_activation is None:
+        return x
+    if pre_activation == "crelu":
+        return F.relu(torch.cat([x, -x], dim=-1))
+    if pre_activation == "celu":
+        return F.elu(torch.cat([x, -x], dim=-1))
+    if pre_activation == "relu":
+        return F.relu(x)
+    if pre_activation == "elu":
+        return F.elu(x)
+    raise ValueError(f"unsupported pre-activation: {pre_activation!r}")
+
+
+def fan_in_factor(pre_activation: Optional[str]) -> int:
+    return 2 if pre_activation in ("crelu", "celu") else 1
+
+
+def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Gated linear unit ``h * sigmoid(gate)`` over the two halves of ``dim``."""
+    h, gate = torch.chunk(x, 2, dim=dim)
+    return h * torch.sigmoid(gate)
+
+
+def l2_normalize_rows(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Row L2 normalisation of the critic head (no epsilon by default)."""
+    return x / torch.sqrt(torch.sum(x.square(), dim=-1, keepdim=True) + eps)
+
+
+def nn_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of an NHWC tensor."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, factor, w, factor, c)
+    return x.reshape(n, h * factor, w * factor, c)
+
+
+def save_point(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Named rematerialisation boundary; an identity until remat is ported."""
+    return x
+
+
+def same_padding(size: int, kernel: int, stride: int):
+    """XLA's SAME padding ``(low, high)`` for one spatial dim: the output is
+    ``ceil(size / stride)`` and an odd total pads one more at the high end
+    (5x5 stride 2 on 32 -> 16 pads (1, 2))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class _WeightNormLayer(nn.Module):
+    """Shared (V, g, b) handling. ``V`` has the output axis first."""
+
+    def __init__(self, v_shape: Sequence[int], init_scale: float,
+                 pre_activation: Optional[str], compute_dtype: torch.dtype):
+        super().__init__()
+        if pre_activation not in PRE_ACTIVATIONS:
+            raise ValueError(f"unsupported pre-activation: {pre_activation!r}")
+        self.V = nn.Parameter(torch.empty(tuple(v_shape)))
+        self.g = nn.Parameter(torch.ones(v_shape[0]))
+        self.b = nn.Parameter(torch.zeros(v_shape[0]))
+        self.init_scale = init_scale
+        self.pre_activation = pre_activation
+        self.compute_dtype = compute_dtype
+        self.init_pending = False
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """``V ~ 0.05 N(0, 1)`` (reference initializer, ``utils/nn.py:124``),
+        ``g = 1``, ``b = 0``; drawn on the CPU so every device gets the same
+        numbers from one seed."""
+        v = 0.05 * torch.randn(self.V.shape, generator=generator)
+        self.V.copy_(v)
+        self.g.fill_(1.0)
+        self.b.fill_(0.0)
+
+    def _direction(self) -> torch.Tensor:
+        dims = tuple(range(1, self.V.dim()))
+        return self.V / torch.sqrt(torch.sum(self.V.square(), dim=dims, keepdim=True))
+
+    def _apply_weight(self, xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xin = self._input(x)
+        if self.init_pending:
+            return self._data_dependent_init(xin)
+        shape = (-1,) + (1,) * (self.V.dim() - 1)
+        w = self._direction() * self.g.reshape(shape)
+        return self._apply_weight(xin, w) + self.b
+
+    @torch.no_grad()
+    def _data_dependent_init(self, xin: torch.Tensor) -> torch.Tensor:
+        """``utils/nn.py:108-162`` with the init pass actually executed."""
+        pre = self._apply_weight(xin, self._direction())
+        dims = tuple(range(pre.dim() - 1))
+        std = torch.std(pre, dim=dims, correction=0)
+        g = self.init_scale / (std + 1e-10)
+        out = pre * g
+        b = -torch.mean(out, dim=dims)
+        self.g.copy_(g)
+        self.b.copy_(b)
+        self.init_pending = False
+        return out + b
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_pre_activation(x, self.pre_activation)
+
+
+class Dense(_WeightNormLayer):
+    """Weight-normalised dense layer (reference ``dense``,
+    ``utils/nn.py:314-325``); V is ``(num_units, fan_in)``."""
+
+    def __init__(self, in_features: int, num_units: int,
+                 pre_activation: Optional[str] = "celu", init_scale: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        fan_in = in_features * fan_in_factor(pre_activation)
+        super().__init__((num_units, fan_in), init_scale, pre_activation, compute_dtype)
+
+    def _apply_weight(self, xin, w):
+        cd = self.compute_dtype
+        return F.linear(xin.to(cd), w.to(cd)).float()
+
+
+class Conv2d(_WeightNormLayer):
+    """Weight-normalised conv layer (reference ``conv2d``,
+    ``utils/nn.py:327-338``) on NHWC inputs; V is OIHW. ``upsample``
+    NN-upsamples 2x before the pre-activation. Padding is XLA's SAME."""
+
+    def __init__(self, in_channels: int, num_filters: int,
+                 filter_size: Sequence[int] = (3, 3), stride: Sequence[int] = (1, 1),
+                 upsample: bool = False, pre_activation: Optional[str] = "celu",
+                 init_scale: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        fan_in = in_channels * fan_in_factor(pre_activation)
+        kh, kw = filter_size
+        super().__init__((num_filters, fan_in, kh, kw), init_scale,
+                         pre_activation, compute_dtype)
+        self.stride = tuple(stride)
+        self.upsample = upsample
+
+    def _input(self, x):
+        if self.upsample:
+            x = nn_upsample(x)
+        return apply_pre_activation(x, self.pre_activation)
+
+    def _apply_weight(self, xin, w):
+        cd = self.compute_dtype
+        _, h, wd, _ = xin.shape
+        kh, kw = w.shape[2:]
+        ph = same_padding(h, kh, self.stride[0])
+        pw = same_padding(wd, kw, self.stride[1])
+        x = xin.to(cd)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            padding = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+            padding = (0, 0)
+        # NHWC -> channels-last NCHW view, and back: no copies
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.to(cd), stride=self.stride,
+                       padding=padding)
+        return out.permute(0, 2, 3, 1).float()
+
+
+def weight_norm_layers(module: nn.Module) -> Iterable[_WeightNormLayer]:
+    return (m for m in module.modules() if isinstance(m, _WeightNormLayer))
+
+
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Draw every layer's V in registration order from ``generator``."""
+    for layer in weight_norm_layers(module):
+        layer.reset_parameters(generator)
+
+
+@torch.no_grad()
+def data_init(module: nn.Module, *inputs) -> torch.Tensor:
+    """Run the data-dependent init: mark every layer, run one forward on a
+    real batch (each layer sets its g and b as the batch reaches it) and
+    return that forward's output."""
+    layers = list(weight_norm_layers(module))
+    for layer in layers:
+        layer.init_pending = True
+    out = module(*inputs)
+    missed = [layer for layer in layers if layer.init_pending]
+    if missed:
+        raise RuntimeError(f"{len(missed)} layers saw no data during init")
+    return out

@@ -1,0 +1,105 @@
+"""Log-domain Sinkhorn (counterpart of ``otgan_tpu/ops/sinkhorn.py``).
+
+Starting from ``x = -lam * cost`` the loop carries only the dual potentials,
+with ``log_a = x + u[:, None] + v[None, :]``:
+
+    u_i <- -logsumexp_j(x_ij + v_j)        # row step
+    v_j <- -logsumexp_i(x_ij + u_i)        # column step, REPLACES v
+
+which is algebraically the reference's full-matrix recursion
+(``utils/matching.py:50-57`` in openai/ot-gan). The assignment is the row
+softmax of ``log_a`` and the entropy its mean row Shannon entropy. All of it
+is float32.
+
+``sinkhorn_assignment(use_pallas=True)`` runs the potential loop in the
+hand-written CUDA kernel (``ops/sinkhorn_cuda.py``); the name of the flag is
+kept so that a ``config.json`` reads in both packages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Max-shifted logsumexp, as the JAX package writes it."""
+    m = torch.amax(x, dim=dim, keepdim=True)
+    return m.squeeze(dim) + torch.log(torch.sum(torch.exp(x - m), dim=dim))
+
+
+def sinkhorn_log(neg_lam_cost: torch.Tensor, n_iters: int):
+    """Sinkhorn on pre-scaled logits ``(..., N, M)``; leading dims batch.
+
+    Returns ``(log_a, u, v)`` with ``log_a = x + u[..., :, None] + v[..., None, :]``.
+    """
+    x = neg_lam_cost.float()
+    u = x.new_zeros(x.shape[:-1])
+    v = x.new_zeros(x.shape[:-2] + x.shape[-1:])
+    for _ in range(n_iters):
+        u = -_lse(x + v.unsqueeze(-2), dim=-1)
+        v = -_lse(x + u.unsqueeze(-1), dim=-2)
+    return x + u.unsqueeze(-1) + v.unsqueeze(-2), u, v
+
+
+def assignment_and_entropy(log_a: torch.Tensor):
+    """Row-softmax assignment and mean row entropy (reference semantics:
+    ``softmax_cross_entropy_with_logits(labels=P, logits=log_a)`` is the row
+    Shannon entropy of P)."""
+    p = torch.softmax(log_a, dim=-1)
+    logp = torch.log_softmax(log_a, dim=-1)
+    ent = -torch.sum(p * logp, dim=-1)
+    return p, torch.mean(ent, dim=-1)
+
+
+def sinkhorn_log_tol(neg_lam_cost: torch.Tensor, max_iters: int, tol: float):
+    """Early-exit Sinkhorn: each matrix iterates until its column potential
+    moves less than ``tol`` (sup-norm) or ``max_iters`` is reached.
+
+    Returns ``(log_a, iterations_used)``; ``iterations_used`` has the batch
+    shape. An opt-in deviation from the reference's fixed count.
+    """
+    x = neg_lam_cost.float()
+    batch_shape = x.shape[:-2]
+    flat = x.reshape((-1,) + x.shape[-2:])
+    logs, iters = [], []
+    for x2d in flat:
+        u = x2d.new_zeros(x2d.shape[0])
+        v = x2d.new_zeros(x2d.shape[1])
+        i, delta = 0, float("inf")
+        while i < max_iters and delta >= tol:
+            v_prev = v
+            u = -_lse(x2d + v[None, :], dim=1)
+            v = -_lse(x2d + u[:, None], dim=0)
+            delta = float(torch.max(torch.abs(v - v_prev)))
+            i += 1
+        logs.append(x2d + u[:, None] + v[None, :])
+        iters.append(i)
+    log_a = torch.stack(logs).reshape(x.shape)
+    return log_a, torch.tensor(iters, dtype=torch.int32).reshape(batch_shape)
+
+
+@torch.no_grad()
+def sinkhorn_assignment(
+    cost: torch.Tensor,
+    lam: float,
+    n_iters: int,
+    use_pallas: bool = False,
+    tol: float = 0.0,
+):
+    """Cost ``(..., N, M)`` -> (assignment P, mean row entropy).
+
+    The plan is not differentiated: the reference seeds backprop at the
+    feature tensors, so the cost is detached here. ``tol > 0`` takes the
+    early-exit loop (a dynamic trip count the fixed-count kernel does not
+    run); otherwise ``use_pallas`` selects the CUDA kernel.
+    """
+    cost = cost.detach()
+    if tol > 0.0:
+        log_a, _ = sinkhorn_log_tol(-lam * cost.float(), n_iters, tol)
+        return assignment_and_entropy(log_a)
+    if use_pallas:
+        from otgan_tpu_torch.ops.sinkhorn_cuda import sinkhorn_assignment_kernel
+
+        return sinkhorn_assignment_kernel(cost, lam, n_iters)
+    log_a, _, _ = sinkhorn_log(-lam * cost.float(), n_iters)
+    return assignment_and_entropy(log_a)
