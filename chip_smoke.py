@@ -1,23 +1,42 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
+"""Smoke test of the PyTorch port on NVIDIA GPUs: ``python3 chip_smoke.py``.
 
 Run from the root of a checkout, it
 
 1. prints the card's ``nvidia-smi`` name and power limit;
 2. builds every CUDA kernel from ``otgan_tpu_torch/csrc/``;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (6 x 2500^2, lam = 500, 500 iterations) and at a
-   ragged one (6 x 100 x 228): max |dP| <= 1e-5 and |d entropy| <= 1e-4;
-   then the kernel path against a float64 Sinkhorn on a small input;
-4. drives the main path, ``otgan_tpu_torch.train --preset train_py
+3. holds the column-potential kernel against its plain PyTorch version on
+   the card, at the main path's shapes (6 x 2500^2, lam = 500, 500
+   iterations) and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5 and
+   |d entropy| <= 1e-4; then the kernel path against a float64 Sinkhorn on
+   a small input;
+4. drives the single-GPU path, ``otgan_tpu_torch.train --preset train_py
    --synthetic_data --synthetic_size 10000`` for one 5:1 cycle (6 steps of
    global batch 5000, bf16 model compute), with every launch counter set
    to 0 just before and read just after: each kernel of the path must have
    launched and no plain version may have run;
-5. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
-   the main path, its error against the plain version, its time, the plain
+5. holds the row-sharded matcher's two local-step kernels (fused and
+   stream tiers) against their plain version, at the row blocks one rank
+   holds in a multi-GPU run: (6, 313, 2500) (batch 5000 on 8 GPUs), (6,
+   1000, 4000) (batch 8000 on 4 GPUs) and a ragged (6, 100, 228): one step
+   (m within 1e-6, s within 1e-5 relative), then 500 iterations of the
+   whole matrix split into those blocks, the ranks' all-reduces done in
+   torch (P within 1e-5, entropy within 1e-4);
+6. drives the multi-GPU matcher path in a one-process NCCL group: the
+   row-sharded two-batch matcher at d 32768, lam 500, 500 iterations, at
+   batch 2000 (block (6, 1000, 1000), fused tier) and batch 8000 (block
+   (6, 4000, 4000), stream tier), counters zeroed just before and read just
+   after, against the single-device matcher (matched features and entropy
+   within 1e-4);
+7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
+   are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
+   single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
+   8000), then one 3:1 cycle of ``--preset model_saving`` (matcher layout
+   auto, which resolves to rows); on one card it says that it skipped this;
+8. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
+   its path, its error against the plain version, its time, the plain
    version's time and the bound for the same work on this card;
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+9. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without CUDA it exits 1 at once.
@@ -28,6 +47,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -119,6 +139,193 @@ def sinkhorn_f64(cost, lam: float, iters: int):
     return p, ent
 
 
+STEP_M_TOL, STEP_S_RTOL = 1e-6, 1e-5  # one local step: m absolute, s relative
+MULTI_GPU_TIMEOUT = 600
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def bound(bytes_moved: float, ops: float, bw: float, flops: float):
+    """(least ms for the work on this card, what bounds it)."""
+    b_ms, o_ms = bytes_moved / bw * 1e3, ops / flops * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def drive_blocks(x, n_blocks: int, iters: int, mode=None):
+    """``iters`` Sinkhorn iterations on the square logits ``x`` (b, N, N)
+    split into the row blocks ``n_blocks`` ranks would hold, each block's
+    local step a kernel of tier ``mode`` (``"plain"``: the plain version),
+    the ranks' all-reduces done in torch. Returns the column potential."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+
+    rows = -(-x.shape[1] // n_blocks)
+    blocks = [x[:, i * rows:(i + 1) * rows].contiguous() for i in range(n_blocks)]
+    if mode == "plain":
+        steps = [lambda v, blk=blk: st.local_step_plain(blk, v) for blk in blocks]
+    else:
+        steps = [st.make_local_step(blk, mode) for blk in blocks]
+    v = x.new_zeros((x.shape[0], x.shape[2]))
+    for _ in range(iters):
+        parts = [step(v) for step in steps]
+        m = torch.stack([p[0] for p in parts])
+        s = torch.stack([p[1] for p in parts])
+        m_glob = m.amax(dim=0)
+        v = -(m_glob + torch.log((s * torch.exp(m - m_glob)).sum(dim=0)))
+    return v
+
+
+def hold_local_step(x, n_blocks: int, label: str) -> dict:
+    """Both local-step tiers against the plain version at the row blocks of
+    ``x`` over ``n_blocks`` ranks: one step, then ITERS iterations."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+    from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy
+
+    v_ref = drive_blocks(x, n_blocks, ITERS, "plain")
+    p_ref, e_ref = assignment_and_entropy(x + v_ref[:, None, :])
+    rows = -(-x.shape[1] // n_blocks)
+    blk = x[:, :rows].contiguous()
+    m_ref, s_ref = st.local_step_plain(blk, v_ref)
+    out = {}
+    for mode in ("fused", "stream"):
+        m_k, s_k = st.make_local_step(blk, mode)(v_ref)
+        v_k = drive_blocks(x, n_blocks, ITERS, mode)
+        p, e = assignment_and_entropy(x + v_k[:, None, :])
+        torch.cuda.synchronize()
+        res = {
+            "step_max_abs_dm": float((m_k - m_ref).abs().max()),
+            "step_max_rel_ds": float(((s_k - s_ref).abs() / s_ref.abs()).max()),
+            "max_abs_dP": float((p - p_ref).abs().max()),
+            "max_abs_dentropy": float((e - e_ref).abs().max()),
+            "finite": bool(torch.isfinite(p).all() and torch.isfinite(s_k).all()),
+        }
+        print(f"local step {mode} vs plain, {label}: block {tuple(blk.shape)} of "
+              f"{tuple(x.shape)} over {n_blocks} ranks, lam={LAM} iters={ITERS}: "
+              + json.dumps(res), flush=True)
+        if not (res["finite"] and res["step_max_abs_dm"] <= STEP_M_TOL
+                and res["step_max_rel_ds"] <= STEP_S_RTOL and res["max_abs_dP"] <= P_TOL
+                and res["max_abs_dentropy"] <= ENT_TOL):
+            raise AssertionError(f"local step {mode} disagrees with its plain version at {label}")
+        out[mode] = res
+    return out
+
+
+def time_local_step(blk, mode: str, bw: float, flops: float) -> dict:
+    """One step, ITERS steps with the v update between, and the plain step,
+    at the rank's block ``blk``; the bounds of a step and of ITERS steps."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+
+    b, n, m = blk.shape
+    step = st.make_local_step(blk, mode)
+    v0 = torch.zeros((b, m), device="cuda")
+
+    def loop():
+        v = v0
+        for _ in range(ITERS):
+            m_loc, s_loc = step(v)
+            v = -(m_loc + torch.log(s_loc))
+
+    step_bytes = 4 * (b * n * m + 3 * b * m)
+    step_ops = OPS_PER_CELL_ITER * b * n * m
+    bound_ms, bound_by = bound(step_bytes, step_ops, bw, flops)
+    bound_iters_ms, bound_iters_by = bound(step_bytes, step_ops * ITERS, bw, flops)
+    return {
+        "ms": cuda_ms(lambda: step(v0), reps=50),
+        "plain_ms": cuda_ms(lambda: st.local_step_plain(blk, v0), reps=10),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "ms_per_500_steps": cuda_ms(loop, reps=3),
+        "bound_ms_per_500_steps": bound_iters_ms,
+        "bound_by_per_500_steps": bound_iters_by,
+        "shape": [b, n, m],
+    }
+
+
+def run_group(cmd, timeout: float, env) -> subprocess.CompletedProcess:
+    """Run ``cmd`` in its own process group; on timeout kill the whole group."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def ranks_check() -> int:
+    """``torchrun --nproc_per_node K chip_smoke.py --ranks`` (K 2 or 4): the
+    row-sharded matcher over K GPUs (NCCL) on each rank's rows, gathered,
+    against the single-device matcher on rank 0, at batches 5000 and 8000
+    and, where K divides both halves of 5000, at the next batch whose halves
+    it does not divide (padded halves); whole local halves are compared
+    after ``sharded_permutation``. Rank 0 prints one ``ranks_check`` JSON
+    line."""
+    import torch
+    import torch.distributed as dist
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+    from otgan_tpu_torch.ops.matching import match_two_batch
+    from otgan_tpu_torch.parallel.matching_sharded import (
+        make_sharded_two_batch_matcher,
+        sharded_permutation,
+    )
+    from otgan_tpu_torch.parallel.mesh import all_gather_rows, init_from_env, local_rows
+
+    init_from_env("cuda")
+    rank, size = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
+    report, failed = {"ranks": size}, []
+    batches = [5000, 8000]
+    if (5000 // 2) % size == 0:
+        batches.insert(1, next(B for B in range(5000, 6000, 2)
+                               if B % size == 0 and (B // 2) % size))
+    for B in batches:
+        fa, fb = unit_features(gen, B, 32768), unit_features(gen, B, 32768)
+        mine = (local_rows(fa, rank, size), local_rows(fb, rank, size))
+        st.reset_launch_counts()
+        got = rows(*mine)
+        counts = dict(st.launches)
+        outs = [all_gather_rows(t, None) for t in got[:4]]
+        ent = float(got.entropy)
+        rows_ms = cuda_ms(lambda: rows(*mine), reps=2)
+        if rank == 0:
+            even = (B // 2) % size == 0
+            perm = sharded_permutation(B, size) if even else list(range(B))
+            inv = torch.argsort(torch.tensor(perm, device="cuda"))
+            ref = match_two_batch(fa[perm], fb[perm], LAM, ITERS, use_pallas=True)
+            d_feat = max(float((o - r[inv]).abs().max()) for o, r in zip(outs, ref[:4]))
+            d_ent = abs(ent - float(ref.entropy))
+            single_ms = cuda_ms(lambda: match_two_batch(fa, fb, LAM, ITERS, use_pallas=True),
+                                reps=2)
+            tier = st.local_step_mode(-(-(B // 2) // size), size * -(-(B // 2) // size))
+            report[str(B)] = dict(path="whole local halves" if even else "padded halves",
+                                  tier=tier, launches=counts, max_abs_dfeatures=d_feat,
+                                  dentropy=d_ent, row_sharded_matcher_ms=rows_ms,
+                                  single_device_matcher_ms=single_ms)
+            if counts[tier] < 1 or counts["plain"] != 0 or d_feat > 1e-4 or d_ent > ENT_TOL:
+                failed.append(B)
+        del fa, fb, mine, got, outs
+        torch.cuda.empty_cache()
+    if rank == 0:
+        print("ranks_check: " + json.dumps(report), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    if failed:
+        raise AssertionError(f"the row-sharded matcher on {size} GPUs disagrees at {failed}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -157,7 +364,7 @@ def main() -> int:
         cosine_cost(unit_features(gen, 100, 32768), unit_features(gen, 228, 32768))
         for _ in range(6)
     ])
-    compare_with_plain(ragged, "ragged")
+    ragged_x = compare_with_plain(ragged, "ragged")["x"]
 
     x = main_cmp.pop("x")
     kernel_ms = cuda_ms(lambda: sk.col_potential_cuda(x, ITERS), reps=5)
@@ -224,7 +431,132 @@ def main() -> int:
     if imgs.shape != (4, 32, 32, 3) or not bool(torch.isfinite(imgs).all()):
         raise AssertionError("generator output after training is malformed")
 
-    # ---- 5. the kernels line ----
+    del result, imgs
+    torch.cuda.empty_cache()
+
+    # ---- 5. the local-step kernels vs plain at one rank's blocks ----
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+
+    costs = two_batch_costs(unit_features(gen, BATCH, 32768), unit_features(gen, BATCH, 32768))
+    x5000 = sk.scaled_logits(costs, LAM)  # batch 5000: (6, 2500, 2500)
+    del costs
+    held = {"b5000_8gpu": hold_local_step(x5000, 8, "batch 5000 on 8 GPUs")}
+    rank_fused = x5000[:, :313].contiguous()
+    del x5000
+    costs = two_batch_costs(unit_features(gen, 8000, 32768), unit_features(gen, 8000, 32768))
+    x8000 = sk.scaled_logits(costs, LAM)  # batch 8000: (6, 4000, 4000)
+    del costs
+    held["b8000_4gpu"] = hold_local_step(x8000, 4, "batch 8000 on 4 GPUs")
+    rank_stream = x8000[:, :1000].contiguous()
+    del x8000
+    held["ragged"] = hold_local_step(ragged_x, 3, "ragged")
+    if (st.local_step_mode(313, 2500), st.local_step_mode(1000, 4000)) != ("fused", "stream"):
+        raise AssertionError("the tier rule no longer picks fused at (313, 2500) "
+                             "and stream at (1000, 4000)")
+    # each tier at both ranks' blocks; a kernel's own numbers are at the
+    # block its tier rule picks it for
+    timing = {mode: {label: time_local_step(blk, mode, bw, flops)
+                     for label, blk in (("6x313x2500", rank_fused),
+                                        ("6x1000x4000", rank_stream))}
+              for mode in ("fused", "stream")}
+    for mode, by_shape in timing.items():
+        for label, t in by_shape.items():
+            print(f"local step {mode} at {label} on {card}: {t['ms']:.4f} ms per step "
+                  f"(plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+                  f"{t['bound_by']}); {t['ms_per_500_steps']:.3f} ms per {ITERS} steps with "
+                  f"the v update (bound {t['bound_ms_per_500_steps']:.3f} ms)", flush=True)
+    del rank_fused, rank_stream
+
+    # ---- 6. the row-sharded matcher in a one-process NCCL group ----
+    import torch.distributed as dist
+    from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    sharded = {}
+    try:
+        rows_matcher = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
+        for B in (2000, 8000):
+            fa, fb = unit_features(gen, B, 32768), unit_features(gen, B, 32768)
+            ref = match_two_batch(fa, fb, LAM, ITERS, use_pallas=True)
+            st.reset_launch_counts()
+            sk.reset_launch_counts()
+            got = rows_matcher(fa, fb)
+            torch.cuda.synchronize()
+            counts = {**{f"step_{k}": v for k, v in st.launches.items()},
+                      "col_potential": sk.launches["kernel"],
+                      "col_potential_plain": sk.launches["plain"]}
+            tier = st.local_step_mode(B // 2, B // 2)
+            d_feat = max(float((g - w).abs().max()) for g, w in zip(got[:4], ref[:4]))
+            d_ent = abs(float(got.entropy) - float(ref.entropy))
+            finite = all(bool(torch.isfinite(t).all()) for t in got[:4])
+            rows_ms = cuda_ms(lambda: rows_matcher(fa, fb), reps=2)
+            single_ms = cuda_ms(lambda: match_two_batch(fa, fb, LAM, ITERS, use_pallas=True),
+                                reps=2)
+            sharded[tier] = dict(batch=B, launches=counts[f"step_{tier}"], counts=counts,
+                                 max_abs_dfeatures=d_feat, dentropy=d_ent,
+                                 row_sharded_matcher_ms=rows_ms, single_device_matcher_ms=single_ms)
+            print(f"row-sharded matcher, NCCL group of 1, batch {B} (block "
+                  f"({6}, {B // 2}, {B // 2}), tier {tier}): launches {counts}; vs the "
+                  f"single-device matcher max|d features| {d_feat:.3e}, |d entropy| "
+                  f"{d_ent:.3e}; {rows_ms:.3f} ms per match vs {single_ms:.3f} ms on {card}",
+                  flush=True)
+            if counts[f"step_{tier}"] < 1 or counts["step_plain"] != 0:
+                raise AssertionError(f"the row-sharded matcher did not run the {tier} kernel: "
+                                     f"{counts}")
+            if not (finite and d_feat <= 1e-4 and d_ent <= ENT_TOL):
+                raise AssertionError(f"row-sharded matcher disagrees at batch {B}")
+            del fa, fb, ref, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 7. several GPUs: one 3:1 cycle of the model_saving preset ----
+    n_cards = torch.cuda.device_count()
+    multi = None
+    if n_cards > 1:
+        k = 4 if n_cards >= 4 else 2  # a K that divides the presets' batches
+        multi_dir = os.path.join(REPO, "runs", "chip_smoke_multi")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={k}", "-m", "otgan_tpu_torch.train", "--num_devices", str(k),
+               "--preset", "model_saving", "--synthetic_data", "--synthetic_size", "8000",
+               "--max_epochs", "4", "--log_every_steps", "1", "--save_dir", multi_dir]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        torch.cuda.empty_cache()
+        check = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           f"--nproc_per_node={k}", os.path.join(REPO, "chip_smoke.py"),
+                           "--ranks"], MULTI_GPU_TIMEOUT, env)
+        print(check.stdout[-3000:], flush=True)
+        if check.returncode != 0:
+            print(check.stderr[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"the row-sharded matcher check on {k} GPUs exited "
+                                 f"{check.returncode}")
+        ranks = json.loads(next(line for line in check.stdout.splitlines()
+                                if line.startswith("ranks_check: "))[len("ranks_check: "):])
+        t0 = time.time()
+        out = run_group(cmd, MULTI_GPU_TIMEOUT, env)
+        print(out.stdout[-3000:], flush=True)
+        if out.returncode != 0:
+            print(out.stderr[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"torchrun on {k} GPUs exited {out.returncode}")
+        with open(os.path.join(multi_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps_k = [r for r in recs if "step_ms" in r]
+        multi = dict(gpus=k, matcher=recs[0]["matcher"], wall_s=time.time() - t0, ranks=ranks,
+                     steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")}
+                            for r in steps_k])
+        print(f"{k} GPUs, --preset model_saving: {json.dumps(multi)}", flush=True)
+        if [r["kind"] for r in steps_k] != ["disc"] + ["gen"] * 3:
+            raise AssertionError(f"expected one 3:1 cycle, got {[r['kind'] for r in steps_k]}")
+        if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps_k):
+            raise AssertionError("non-finite dist or entropy on several GPUs")
+        if "-> rows]" not in multi["matcher"]:
+            raise AssertionError(f"auto did not resolve to rows: {multi['matcher']}")
+    else:
+        print("multi-GPU phase: not run: one card is visible, and torchrun needs a card "
+              "per rank (NCCL refuses two ranks on one card)", flush=True)
+
+    # ---- 8. the kernels line ----
     kernels = [{
         "name": "sinkhorn_col_potential",
         "route": "cuda",
@@ -245,6 +577,27 @@ def main() -> int:
         "ms_at_batch_256": small_ms,
         "main_path_ms_per_step": [r["step_ms"] for r in steps],
     }]
+    no_library = ("no single PyTorch call computes the (m, s) column partials of a "
+                  "Sinkhorn row step")
+    for mode, line, own, shapes in (
+            ("fused", 113, "6x313x2500", ["b5000_8gpu", "ragged"]),
+            ("stream", 218, "6x1000x4000", ["b8000_4gpu", "ragged"])):
+        kernels.append({
+            "name": f"sinkhorn_local_step_{mode}",
+            "route": "cuda",
+            "source": "otgan_tpu_torch/csrc/sinkhorn_step.cu",
+            "replaces": f"otgan_tpu/ops/sinkhorn_pallas_step.py:{line}",
+            "launches": sharded[mode]["launches"],
+            "max_abs_err": max(held[k][mode]["max_abs_dP"] for k in shapes),
+            **timing[mode][own],
+            "at_both_rank_blocks": timing[mode],
+            "library_ms": None,
+            "library_null_reason": no_library,
+            "held": {k: held[k][mode] for k in held},
+            "path": sharded[mode],
+        })
+    if multi is not None:
+        kernels[-1]["multi_gpu_model_saving"] = multi
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -253,4 +606,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ranks_check() if sys.argv[1:] == ["--ranks"] else main())

@@ -7,9 +7,11 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 "run the Sinkhorn loop in the hand-written CUDA kernel".
 
 Knobs that only steer the TPU runtime (compile caches, host prefetch, the
-fused cycle program, AOT cache, multi-device matcher layout) are read and
-have no effect here. :func:`check_supported` rejects the options whose port
-comes in a later slice, naming it.
+fused cycle program, AOT cache) are read and have no effect here.
+``--num_devices`` K > 1 runs under ``torchrun --nproc_per_node K``, and
+``--matching_layout`` and ``--sharded_matching`` pick its matcher.
+:func:`check_supported` rejects the options whose port comes in a later
+slice, naming it.
 """
 
 from __future__ import annotations
@@ -114,12 +116,10 @@ def check_supported(cfg: TrainConfig) -> None:
         later.append("--remat / --remat_policy (remat slice)")
     if cfg.grad_accum > 1:
         later.append("--grad_accum > 1 (grad-accum slice)")
-    if cfg.num_devices > 1:
-        later.append("--num_devices > 1 (multi-GPU slice)")
     if cfg.multihost:
-        later.append("--multihost (multi-GPU slice)")
+        later.append("--multihost (multi-host slice)")
     if cfg.checkpoint_backend != "npz":
-        later.append("--checkpoint_backend orbax (multi-GPU slice)")
+        later.append("--checkpoint_backend orbax (checkpoint slice)")
     if cfg.load_params:
         later.append("--load_params (checkpoint slice)")
     if cfg.eval_fid:

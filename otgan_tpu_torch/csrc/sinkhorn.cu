@@ -29,71 +29,12 @@
 // the launch latency dominates. Ragged edges are masked by bounds, so any
 // n, m.
 //
-// Numerics: expf/logf, never the fast-math intrinsics (lam = 500 amplifies
-// error 500x). A running max starts at -inf with a sum of 0, and a -inf
-// partial contributes nothing (the guard of the Pallas kernel's rescale).
+// Launch (a) and the numerics live in sinkhorn_panel.cuh, shared with the
+// row-sharded matcher's local step (sinkhorn_step.cu).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "sinkhorn_panel.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;  // rows per panel (one CTA)
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-panel_partials(const float* __restrict__ x, const float* __restrict__ v,
-               float* __restrict__ m_part, float* __restrict__ s_part,
-               int n, int m, int n_panels) {
-  __shared__ float u_s[kRows];
-  const int p = blockIdx.x;
-  const int mat = blockIdx.y;
-  const int row0 = p * kRows;
-  const int rows = min(kRows, n - row0);
-  const float* xp = x + ((size_t)mat * n + row0) * m;
-  const float* vm = v + (size_t)mat * m;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  // row step: u_i = -(max_j y_ij + log sum_j exp(y_ij - max)), y = x + v
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* xr = xp + (size_t)r * m;
-    float mx = -INFINITY;
-    for (int j = lane; j < m; j += 32) mx = fmaxf(mx, xr[j] + vm[j]);
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int j = lane; j < m; j += 32) s += expf(xr[j] + vm[j] - mx);
-    s = warp_sum(s);
-    if (lane == 0) u_s[r] = -(mx + logf(s));
-  }
-  __syncthreads();
-
-  // this panel's column partials of z = x + u (the old v is excluded)
-  float* mp = m_part + ((size_t)mat * n_panels + p) * m;
-  float* sp = s_part + ((size_t)mat * n_panels + p) * m;
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    float mx = -INFINITY;
-    for (int r = 0; r < rows; ++r) mx = fmaxf(mx, xp[(size_t)r * m + j] + u_s[r]);
-    float s = 0.f;
-    if (mx != -INFINITY) {
-      for (int r = 0; r < rows; ++r) s += expf(xp[(size_t)r * m + j] + u_s[r] - mx);
-    }
-    mp[j] = mx;
-    sp[j] = s;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 combine_partials(const float* __restrict__ m_part, const float* __restrict__ s_part,
@@ -101,15 +42,8 @@ combine_partials(const float* __restrict__ m_part, const float* __restrict__ s_p
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int mat = blockIdx.y;
   if (j >= m) return;
-  const float* mp = m_part + (size_t)mat * n_panels * m + j;
-  const float* sp = s_part + (size_t)mat * n_panels * m + j;
-  float mx = -INFINITY;
-  for (int p = 0; p < n_panels; ++p) mx = fmaxf(mx, mp[(size_t)p * m]);
-  float s = 0.f;
-  for (int p = 0; p < n_panels; ++p) {
-    const float mpp = mp[(size_t)p * m];
-    if (mpp != -INFINITY) s += sp[(size_t)p * m] * expf(mpp - mx);
-  }
+  float mx, s;
+  fold_partials(m_part, s_part, mat, j, m, n_panels, &mx, &s);
   v[(size_t)mat * m + j] = -(mx + logf(s));
 }
 

@@ -13,6 +13,18 @@ a Python loop in :meth:`Engine.cycle`. Step functions take the latent as an
 argument, so a test can feed the JAX package's draw; without one they draw
 ``U(-1, 1)`` from the state's ``torch.Generator``. Matching is float32 with
 TF32 off; model matmuls and convs run in ``cfg.compute_dtype``.
+
+Several GPUs (counterpart of the JAX engine's mesh half): one process per
+GPU under ``torchrun``, each with the whole model. Every rank is handed the
+GLOBAL batch and draws the global latents from the same generator, then
+keeps its contiguous rows (``parallel/mesh.py``). The matcher runs on local
+rows (row-sharded, matrix-parallel, or gathered and global, as
+``--matching_layout`` and ``--sharded_matching`` pick). Each rank's loss is
+the sum over its rows, which is the global loss restricted to them because
+the MED surrogate decomposes row by row; the gradients are then summed
+over the ranks, so every rank takes the same optimizer step. The reported
+distance sums its three inner products over the ranks before dividing by
+``2 B``. With one rank the engine is the single-device engine.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -36,10 +49,19 @@ from otgan_tpu_torch.nn.optim import make_optimizer
 from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
 from otgan_tpu_torch.ops.losses import med_discriminator_loss, med_generator_loss
 from otgan_tpu_torch.ops.matching import (
+    MatchedFeatures,
     calc_distance,
     match_random,
     match_single_batch,
     match_two_batch,
+)
+from otgan_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_sum,
+    check_replicated,
+    local_rows,
+    rank_and_size,
+    replicate,
 )
 
 
@@ -90,10 +112,22 @@ def _frozen(module: nn.Module):
 
 
 class Engine:
-    def __init__(self, cfg: TrainConfig, device=None):
+    def __init__(self, cfg: TrainConfig, device=None, group=None):
+        """``group``: the process group of the ranks (default: the default
+        group when one is initialised); one rank is the single-device path."""
         check_supported(cfg)
         self.cfg = cfg
+        self.group = group
+        self.rank, self.world = rank_and_size(group)
+        if cfg.num_devices and cfg.num_devices != self.world:
+            raise ValueError(
+                f"--num_devices {cfg.num_devices} must equal the number of "
+                f"ranks ({self.world}): launch with torchrun --nproc_per_node "
+                f"{cfg.num_devices}"
+            )
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None and self.world > 1:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.family = get_model(cfg.model)
         self.opt_init, opt_update = make_optimizer(cfg.optimizer)
@@ -113,6 +147,13 @@ class Engine:
     # -- matching mode dispatch (train.py:88-97) --
     def _make_matcher(self):
         cfg = self.cfg
+        if cfg.matching_layout not in ("auto", "rows", "matrices"):
+            raise ValueError(
+                "matching_layout must be 'auto', 'rows' or 'matrices', got "
+                f"{cfg.matching_layout!r}"
+            )
+        if self.world > 1:
+            return self._make_parallel_matcher()
         if cfg.no_sinkhorn:
             self.matcher_desc = "random (--no_sinkhorn ablation)"
             return functools.partial(match_random, shard_size=max(cfg.batch_size, 1))
@@ -131,6 +172,161 @@ class Engine:
             tol=cfg.sinkhorn_tol,
         )
 
+    def _make_parallel_matcher(self):
+        """The JAX engine's multi-device dispatch (``otgan_tpu/engine.py``
+        ``_make_matcher``); its ``matcher_desc`` strings, letter for letter."""
+        cfg = self.cfg
+        self.matcher_desc = "global (GSPMD-partitioned)"
+        if cfg.no_sinkhorn:
+            self.matcher_desc = "random (--no_sinkhorn ablation)"
+            shard = max(cfg.batch_size // self.world, 1)
+            return self._gathered(functools.partial(match_random, shard_size=shard))
+        if cfg.sharded_matching:
+            if cfg.matching_layout == "auto":
+                # the rule needs the critic's feature count: resolved in
+                # init_state, or at the first match without it
+                self.matcher_desc = "auto (layout resolves on the critic feature dim)"
+                self._auto_matchers: dict = {}
+
+                def auto_matcher(f_a, f_b):
+                    return self.resolve_auto_layout(int(f_a.shape[-1]))(f_a, f_b)
+
+                return auto_matcher
+            return self._build_layout_matcher(cfg.matching_layout)
+        match = match_single_batch if cfg.single_batch else match_two_batch
+        return self._gathered(functools.partial(
+            match,
+            lam=cfg.sinkhorn_lambda,
+            n_iters=cfg.nr_sinkhorn_iter,
+            cost_fn=cosine_cost,
+            use_pallas=cfg.use_pallas,
+            tol=cfg.sinkhorn_tol,
+        ))
+
+    def _gathered(self, match):
+        """What GSPMD does with a global matcher on a sharded batch: gather
+        the features, match globally, keep this rank's rows."""
+
+        def matcher(f_a, f_b):
+            m = match(all_gather_rows(f_a.detach(), self.group),
+                      all_gather_rows(f_b.detach(), self.group))
+            mine = [local_rows(t, self.rank, self.world) for t in m[:4]]
+            return MatchedFeatures(*mine, m.entropy)
+
+        return matcher
+
+    def auto_layout_estimate(self, feature_dim: int) -> dict:
+        """Per-rank extra memory of the matrix-parallel layout: the float32
+        ``(4, B, d)`` accumulator, the two gathered ``(B, d)`` feature
+        copies and this rank's whole cost matrices. The row-sharded layout
+        gathers the features too but holds ``1/K`` of the outputs and row
+        blocks of the matrices; the accumulator decides."""
+        cfg = self.cfg
+        B, d = cfg.batch_size, feature_dim
+        n_mats = 3 if cfg.single_batch else 6
+        N = B if cfg.single_batch else B // 2
+        rounds = max(1, -(-n_mats // self.world))
+        return {
+            "accumulator_bytes": 4 * B * d * 4,
+            "gathered_bytes": 2 * B * d * 4,
+            "matrices_bytes": rounds * N * N * 4,
+        }
+
+    def resolve_auto_layout(self, feature_dim: int):
+        """``--matching_layout auto``: matrices when the estimate fits
+        ``--matching_memory_budget_gb``, rows otherwise (cached per feature
+        count)."""
+        cached = self._auto_matchers.get(feature_dim)
+        if cached is not None:
+            return cached
+        need = sum(self.auto_layout_estimate(feature_dim).values())
+        budget = self.cfg.matching_memory_budget_gb * 1e9
+        layout = "matrices" if need <= budget else "rows"
+        matcher = self._build_layout_matcher(layout)
+        self.matcher_desc += (
+            f" [auto: estimated {need / 1e9:.2f} GB matrix-parallel "
+            f"residency vs {self.cfg.matching_memory_budget_gb:.1f} GB "
+            f"budget -> {layout}]"
+        )
+        self._auto_matchers[feature_dim] = matcher
+        return matcher
+
+    def _build_layout_matcher(self, layout: str):
+        cfg = self.cfg
+        n_dev = self.world
+        kind = "single" if cfg.single_batch else "two"
+        if layout == "matrices":
+            from otgan_tpu_torch.parallel.matching_matrix import (
+                make_matrix_parallel_single_batch_matcher,
+                make_matrix_parallel_two_batch_matcher,
+            )
+
+            self.matcher_desc = (
+                f"matrix-parallel ({kind}-batch, whole matrices "
+                f"round-robined over the {n_dev}-device mesh)"
+            )
+            make = (
+                make_matrix_parallel_single_batch_matcher
+                if cfg.single_batch
+                else make_matrix_parallel_two_batch_matcher
+            )
+        else:
+            from otgan_tpu_torch.parallel.matching_sharded import (
+                make_sharded_single_batch_matcher,
+                make_sharded_two_batch_matcher,
+            )
+
+            quantum = n_dev if cfg.single_batch else 2 * n_dev
+            if cfg.batch_size % quantum != 0:
+                n_half = cfg.batch_size if cfg.single_batch else cfg.batch_size // 2
+                pad = -n_half % n_dev
+                if cfg.single_batch:
+                    self.matcher_desc = (
+                        f"row-sharded (single-batch, padded rows: "
+                        f"+{pad} pad rows on the {n_dev}-device mesh)"
+                    )
+                else:
+                    self.matcher_desc = (
+                        f"row-sharded (two-batch, padded halves: "
+                        f"+{pad} pad rows per half on the "
+                        f"{n_dev}-device mesh)"
+                    )
+            else:
+                self.matcher_desc = (
+                    f"row-sharded ({kind}-batch, whole local halves "
+                    f"on the {n_dev}-device mesh)"
+                )
+            make = (
+                make_sharded_single_batch_matcher
+                if cfg.single_batch
+                else make_sharded_two_batch_matcher
+            )
+        return make(
+            self.group,
+            cfg.sinkhorn_lambda,
+            cfg.nr_sinkhorn_iter,
+            cost_fn=cosine_cost,
+            tol=cfg.sinkhorn_tol,
+            use_pallas=cfg.use_pallas,
+        )
+
+    def _local(self, t):
+        """This rank's rows of a global batch."""
+        return local_rows(t, self.rank, self.world) if self.world > 1 else t
+
+    def _distance(self, f_a, f_b, m: MatchedFeatures) -> torch.Tensor:
+        if self.world == 1:
+            return calc_distance(f_a, f_b, m)
+        nd = torch.stack([torch.sum(f_a * m.a_a), torch.sum(f_b * m.b_b),
+                          torch.sum(f_a * m.a_b)]).float()
+        dist.all_reduce(nd, group=self.group)
+        return (nd[1] + nd[0] - 2.0 * nd[2]) / (2.0 * f_a.shape[0] * self.world)
+
+    def _sum_grads(self, grads):
+        if self.world > 1:
+            all_reduce_sum(grads, self.group)
+        return grads
+
     def _build_models(self):
         opts = dict(nonlinearity=self.cfg.nonlinearity, compute_dtype=self.compute_dtype)
         return self.family.make_generator(**opts), self.family.make_discriminator(**opts)
@@ -139,7 +335,8 @@ class Engine:
     def init_state(self, seed: int, x_init) -> Tuple[TrainState, int]:
         """Random V from ``seed``, then g and b from the batch ``x_init``
         (uint8 or float NHWC) and as many latents. Returns the state and
-        the critic's feature count."""
+        the critic's feature count. Several ranks each run it on the whole
+        batch, then take rank 0's parameters and check that all agree."""
         cpu_rng = torch.Generator().manual_seed(seed)
         gen, disc = self._build_models()
         reset_parameters(disc, cpu_rng)
@@ -153,6 +350,16 @@ class Engine:
         else:
             with torch.no_grad():
                 f = disc(x)
+        self.init_spread = 0.0
+        if self.world > 1:
+            # every rank ran the same init on the whole batch; rank 0's
+            # parameters win, and init_spread records how far the others were
+            params = [*gen.parameters(), *disc.parameters()]
+            self.init_spread = replicate(params, self.group)
+            check_replicated(params, self.group)
+        if hasattr(self, "_auto_matchers"):
+            # --matching_layout auto, now that the feature count is known
+            self.resolve_auto_layout(int(f.shape[-1]))
         gen_params = dict(gen.named_parameters())
         disc_params = dict(disc.named_parameters())
         state = TrainState(
@@ -186,9 +393,11 @@ class Engine:
 
     # -- generator update (train.py:108-113 descent; EMA at :223) --
     def gen_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
+        """One generator step on the global batch ``x_data`` (and global
+        latents ``z``, else drawn): each rank keeps its rows."""
         cfg = self.cfg
-        x = self.ingest(x_data)
-        z = self._latent(state, x.shape[0], z)
+        z = self._local(self._latent(state, len(x_data), z))
+        x = self.ingest(self._local(x_data))
         params = dict(state.gen.named_parameters())
         with torch.no_grad():
             f_dat = state.disc(x)
@@ -196,33 +405,34 @@ class Engine:
             f_gen = state.disc(state.gen(z))
         m = self._matcher(f_gen, f_dat)
         loss = med_generator_loss(f_gen, m)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        dist = calc_distance(f_gen.detach(), f_dat, m)
+        grads = self._sum_grads(torch.autograd.grad(loss, list(params.values())))
+        distance = self._distance(f_gen.detach(), f_dat, m)
         del loss, f_gen
         self.opt_update(params, dict(zip(params, grads)), state.gen_opt,
                         cfg.learning_rate_gen)
         ema_update(state.gen_ema, params, cfg.ema_decay)
         state.step += 1
-        return state, StepMetrics(dist=dist, entropy=m.entropy)
+        return state, StepMetrics(dist=distance, entropy=m.entropy)
 
     # -- critic update: ascent via negative lr (train.py:115-130,143) --
     def disc_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
+        """One critic step on the global batch, as :meth:`gen_step`."""
         cfg = self.cfg
-        x = self.ingest(x_data)
-        z = self._latent(state, x.shape[0], z)
+        z = self._local(self._latent(state, len(x_data), z))
+        x = self.ingest(self._local(x_data))
         x_fake = self.sample(state, z, ema=cfg.train_disc_against_ema)
         params = dict(state.disc.named_parameters())
         f_fake = state.disc(x_fake)
         f_dat = state.disc(x)
         m = self._matcher(f_fake, f_dat)
         loss = med_discriminator_loss(f_fake, f_dat, m)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        dist = calc_distance(f_fake.detach(), f_dat.detach(), m)
+        grads = self._sum_grads(torch.autograd.grad(loss, list(params.values())))
+        distance = self._distance(f_fake.detach(), f_dat.detach(), m)
         del loss, f_fake, f_dat
         self.opt_update(params, dict(zip(params, grads)), state.disc_opt,
                         -cfg.learning_rate_disc)
         state.step += 1
-        return state, StepMetrics(dist=dist, entropy=m.entropy)
+        return state, StepMetrics(dist=distance, entropy=m.entropy)
 
     def is_disc_step(self, step: int) -> bool:
         """1 critic step per ``nr_gen_per_disc`` generator steps

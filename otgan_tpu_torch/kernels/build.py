@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``.
-The hash covers the source and the flags, so an edited source builds anew
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header builds anew
 and an unchanged one loads from the build directory. All missing libraries
 are compiled at once, one ``nvcc`` process per source started together.
 A missing ``nvcc`` or a failed build raises; nothing degrades to another
@@ -59,10 +60,16 @@ def sources() -> Dict[str, str]:
     }
 
 
+def _headers() -> list:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cuh"))
+
+
 def _lib_path(name: str, src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src, *_headers()]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -8,6 +8,12 @@ JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean generator
 and critic distances and entropy, and with ``--log_every_steps N`` every
 N-th step's dist, entropy and wall time. Checkpoints, sample grids,
 Inception/FID eval and host prefetch come in later slices.
+
+On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
+--num_devices K ...``, one process per GPU (NCCL; gloo with ``--device
+cpu``). Every rank reads the same global batches; only rank 0 writes
+``config.json`` and ``metrics.jsonl`` and prints. Every rank ends in a
+barrier, then leaves the process group.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namespace
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
 from otgan_tpu_torch.engine import Engine, TrainState
+from otgan_tpu_torch.parallel.mesh import init_from_env
 from otgan_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -40,10 +48,25 @@ def make_loader(cfg: TrainConfig, rng: np.random.Generator) -> DataLoader:
                       rng=rng, out_dtype=out_dtype)
 
 
+class _NoLogger:
+    """What ranks other than 0 log to."""
+
+    def log(self, step: int, **values) -> None:
+        pass
+
+    def __enter__(self) -> "_NoLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
 def train(cfg: TrainConfig, device=None) -> TrainResult:
     engine = Engine(cfg, device)  # rejects options of later slices first
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.save_dir, "config.json"))
+    rank0 = engine.rank == 0
+    if rank0:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        cfg.save(os.path.join(cfg.save_dir, "config.json"))
     data_rng = np.random.default_rng(cfg.seed)
     loader = make_loader(cfg, data_rng)
     if loader.num_batches == 0:
@@ -53,15 +76,16 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
     state, num_features = engine.init_state(
         cfg.seed, loader.init_batch(cfg.init_batch_size or None)
     )
-    print(
-        f"device: {engine.device}; global batch: {cfg.batch_size}; "
-        f"matcher: {engine.matcher_desc}\n"
-        f"model has a hidden representation with {num_features} features",
-        flush=True,
-    )
+    if rank0:
+        print(
+            f"device: {engine.device} ({engine.world} rank(s)); global batch: "
+            f"{cfg.batch_size}; matcher: {engine.matcher_desc}\n"
+            f"model has a hidden representation with {num_features} features",
+            flush=True,
+        )
     steps: List[dict] = []
     stride = cfg.log_every_steps
-    with MetricLogger(cfg.save_dir) as logger:
+    with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger:
         logger.log(state.step, matcher=engine.matcher_desc)
         for epoch in range(cfg.max_epochs):
             begin = time.time()
@@ -96,7 +120,13 @@ def main(argv: Optional[list] = None) -> TrainResult:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; there is no silent fallback")
     ns = parser.parse_args(raw)
-    return train(config_from_namespace(ns, raw), ns.device)
+    joined = not dist.is_initialized()  # leave a caller's group alone
+    device = init_from_env(ns.device)
+    result = train(config_from_namespace(ns, raw), device)
+    if joined and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return result
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The hand-written CUDA Sinkhorn kernel on a card, against its plain
-PyTorch version on the same logits. Every test here needs an NVIDIA GPU and
+"""The hand-written CUDA Sinkhorn kernels on a card (the column-potential
+loop and the row-sharded matcher's local step), against their plain
+PyTorch versions on the same logits. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from otgan_tpu_torch.ops import sinkhorn_cuda
+from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_step_cuda
 from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy, sinkhorn_assignment
 
 
@@ -75,3 +76,38 @@ def test_public_entry_launches_kernel_not_plain(cuda_device):
     assert p.shape == (6, 64, 64) and e.shape == (6,)
     torch.testing.assert_close(p.sum(-1), torch.ones(6, 64, device=cuda_device),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 313, 2500), (6, 100, 228), (2, 37, 50), (1, 1000, 4000)])
+@pytest.mark.parametrize("mode", ["fused", "stream"])
+def test_local_step_kernels_match_plain(cuda_device, shape, mode):
+    """Both tiers at every shape (the tier rule picks one; either must be
+    right), on the inputs of tests/test_torch_sinkhorn_step.py (x in [-50,
+    0], v in [-5, 5], so |m| is a few units and float32 spacing stays under
+    5e-7): m within 1e-6 and s within 1e-5 relative of the plain version."""
+    rng = np.random.default_rng(0)
+    b, n, m = shape
+    x = torch.from_numpy(rng.uniform(-50, 0, shape).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.uniform(-5, 5, (b, m)).astype(np.float32)).to(cuda_device)
+    before = dict(sinkhorn_step_cuda.launches)
+    m_k, s_k = sinkhorn_step_cuda.make_local_step(x, mode)(v)
+    torch.cuda.synchronize()
+    assert sinkhorn_step_cuda.launches[mode] == before[mode] + 1
+    assert sinkhorn_step_cuda.launches["plain"] == before["plain"]
+    m_ref, s_ref = sinkhorn_step_cuda.local_step_plain(x, v)
+    torch.testing.assert_close(m_k, m_ref, atol=1e-6, rtol=0)
+    torch.testing.assert_close(s_k, s_ref, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_local_step_bad_inputs_raise(cuda_device):
+    x = torch.randn(2, 20, 30, device=cuda_device)
+    with pytest.raises(ValueError):
+        sinkhorn_step_cuda.make_local_step(x.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        sinkhorn_step_cuda.make_local_step(x.double())
+    with pytest.raises(ValueError):
+        sinkhorn_step_cuda.make_local_step(x)(torch.zeros(2, 31, device=cuda_device))
+    with pytest.raises(ValueError, match="tier"):
+        sinkhorn_step_cuda.make_local_step(x, "xla")

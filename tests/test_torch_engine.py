@@ -175,7 +175,7 @@ def test_config_surface_matches_jax():
 @pytest.mark.parametrize(
     "kw",
     [dict(model="densenet"), dict(model="toy_mlp"), dict(remat=True), dict(grad_accum=2),
-     dict(num_devices=2), dict(multihost=True), dict(checkpoint_backend="orbax"),
+     dict(load_params=True), dict(multihost=True), dict(checkpoint_backend="orbax"),
      dict(eval_fid=True), dict(matching_precision="high")],
 )
 def test_later_slices_raise(kw):
