@@ -21,7 +21,9 @@ Run from the root of a checkout, it
    1000, 4000) (batch 8000 on 4 GPUs) and a ragged (6, 100, 228): one step
    (m within 1e-6, s within 1e-5 relative), then 500 iterations of the
    whole matrix split into those blocks, the ranks' all-reduces done in
-   torch (P within 1e-5, entropy within 1e-4);
+   torch (P within 1e-5, entropy within 1e-4); the stream tier also on so
+   few blocks that each walks several panels, and one stream step on the
+   whole (6, 4000, 4000) on its default grid (2 panels a block);
 6. drives the multi-GPU matcher path in a one-process NCCL group: the
    row-sharded two-batch matcher at d 32768, lam 500, 500 iterations, at
    batch 2000 (block (6, 1000, 1000), fused tier) and batch 8000 (block
@@ -31,11 +33,18 @@ Run from the root of a checkout, it
 7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
    are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
    single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
-   8000), then one 3:1 cycle of ``--preset model_saving`` (matcher layout
-   auto, which resolves to rows); on one card it says that it skipped this;
+   8000), then training on the row-sharded matcher, once per local-step
+   tier: one 3:1 cycle of ``--preset model_saving`` (layout auto, which
+   resolves to rows; stream tier) and one 5:1 cycle of ``--preset
+   train_py --batch_size 1000K --matching_layout rows`` (fused tier). Rank
+   0 logs the kernels' launch counts of the cycle to ``metrics.jsonl``:
+   the tier's kernel must have launched and no plain version run. On one
+   card it says that it skipped this, and that the local-step kernels'
+   launches then come from phase 6, not from their training path;
 8. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
-   its path, its error against the plain version, its time, the plain
-   version's time and the bound for the same work on this card;
+   its path (``launches_from`` says which run), its error against the
+   plain version, its time, the plain version's time and the bound for the
+   same work on this card;
 9. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
@@ -140,7 +149,7 @@ def sinkhorn_f64(cost, lam: float, iters: int):
 
 
 STEP_M_TOL, STEP_S_RTOL = 1e-6, 1e-5  # one local step: m absolute, s relative
-MULTI_GPU_TIMEOUT = 600
+MULTI_GPU_TIMEOUT = 300
 
 
 def free_port() -> int:
@@ -155,20 +164,21 @@ def bound(bytes_moved: float, ops: float, bw: float, flops: float):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def drive_blocks(x, n_blocks: int, iters: int, mode=None):
+def drive_blocks(x, n_blocks: int, iters: int, mode=None, n_ctas=None):
     """``iters`` Sinkhorn iterations on the square logits ``x`` (b, N, N)
     split into the row blocks ``n_blocks`` ranks would hold, each block's
-    local step a kernel of tier ``mode`` (``"plain"``: the plain version),
-    the ranks' all-reduces done in torch. Returns the column potential."""
+    local step a kernel of tier ``mode`` (``"plain"``: the plain version)
+    on ``n_ctas`` blocks per matrix (stream tier), the ranks' all-reduces
+    done in torch. Returns the column potential."""
     import torch
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
 
     rows = -(-x.shape[1] // n_blocks)
     blocks = [x[:, i * rows:(i + 1) * rows].contiguous() for i in range(n_blocks)]
     if mode == "plain":
-        steps = [lambda v, blk=blk: st.local_step_plain(blk, v) for blk in blocks]
+        steps = [st.make_local_step(blk, use_kernel=False) for blk in blocks]
     else:
-        steps = [st.make_local_step(blk, mode) for blk in blocks]
+        steps = [st.make_local_step(blk, mode=mode, n_ctas=n_ctas) for blk in blocks]
     v = x.new_zeros((x.shape[0], x.shape[2]))
     for _ in range(iters):
         parts = [step(v) for step in steps]
@@ -179,39 +189,67 @@ def drive_blocks(x, n_blocks: int, iters: int, mode=None):
     return v
 
 
-def hold_local_step(x, n_blocks: int, label: str) -> dict:
-    """Both local-step tiers against the plain version at the row blocks of
-    ``x`` over ``n_blocks`` ranks: one step, then ITERS iterations."""
+def step_errors(blk, v, mode: str, n_ctas=None) -> dict:
+    """One local step of tier ``mode`` on ``blk`` against the plain step."""
     import torch
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+
+    m_ref, s_ref = st.local_step_plain(blk, v)
+    m_k, s_k = st.make_local_step(blk, mode=mode, n_ctas=n_ctas)(v)
+    return {
+        "step_max_abs_dm": float((m_k - m_ref).abs().max()),
+        "step_max_rel_ds": float(((s_k - s_ref).abs() / s_ref.abs()).max()),
+        "step_finite": bool(torch.isfinite(m_k).all() and torch.isfinite(s_k).all()),
+    }
+
+
+def step_ok(res: dict) -> bool:
+    return (res["step_finite"] and res["step_max_abs_dm"] <= STEP_M_TOL
+            and res["step_max_rel_ds"] <= STEP_S_RTOL)
+
+
+def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
+    """Both local-step tiers against the plain version at the row blocks of
+    ``x`` over ``n_blocks`` ranks: one step, then ITERS iterations. The
+    stream tier also runs on so few blocks that each walks about four
+    16-row panels (``stream_walk``), so the online rescale of its column
+    accumulators runs; with ``whole``, one stream step on the whole of
+    ``x`` on its default grid is held too (the block of a group of one)."""
+    import torch
     from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy
 
     v_ref = drive_blocks(x, n_blocks, ITERS, "plain")
     p_ref, e_ref = assignment_and_entropy(x + v_ref[:, None, :])
     rows = -(-x.shape[1] // n_blocks)
     blk = x[:, :rows].contiguous()
-    m_ref, s_ref = st.local_step_plain(blk, v_ref)
+    walk = max(1, -(-rows // 16) // 4)  # blocks per matrix of stream_walk
     out = {}
-    for mode in ("fused", "stream"):
-        m_k, s_k = st.make_local_step(blk, mode)(v_ref)
-        v_k = drive_blocks(x, n_blocks, ITERS, mode)
+    for name, mode, n_ctas in (("fused", "fused", None), ("stream", "stream", None),
+                               ("stream_walk", "stream", walk)):
+        res = step_errors(blk, v_ref, mode, n_ctas)
+        v_k = drive_blocks(x, n_blocks, ITERS, mode, n_ctas)
         p, e = assignment_and_entropy(x + v_k[:, None, :])
         torch.cuda.synchronize()
-        res = {
-            "step_max_abs_dm": float((m_k - m_ref).abs().max()),
-            "step_max_rel_ds": float(((s_k - s_ref).abs() / s_ref.abs()).max()),
-            "max_abs_dP": float((p - p_ref).abs().max()),
-            "max_abs_dentropy": float((e - e_ref).abs().max()),
-            "finite": bool(torch.isfinite(p).all() and torch.isfinite(s_k).all()),
-        }
-        print(f"local step {mode} vs plain, {label}: block {tuple(blk.shape)} of "
+        res.update(max_abs_dP=float((p - p_ref).abs().max()),
+                   max_abs_dentropy=float((e - e_ref).abs().max()),
+                   finite=bool(torch.isfinite(p).all()))
+        if n_ctas:
+            res["blocks_per_matrix"] = n_ctas
+        print(f"local step {name} vs plain, {label}: block {tuple(blk.shape)} of "
               f"{tuple(x.shape)} over {n_blocks} ranks, lam={LAM} iters={ITERS}: "
               + json.dumps(res), flush=True)
-        if not (res["finite"] and res["step_max_abs_dm"] <= STEP_M_TOL
-                and res["step_max_rel_ds"] <= STEP_S_RTOL and res["max_abs_dP"] <= P_TOL
+        if not (step_ok(res) and res["finite"] and res["max_abs_dP"] <= P_TOL
                 and res["max_abs_dentropy"] <= ENT_TOL):
-            raise AssertionError(f"local step {mode} disagrees with its plain version at {label}")
-        out[mode] = res
+            raise AssertionError(f"local step {name} disagrees with its plain version at {label}")
+        out[name] = res
+    if whole:
+        res = step_errors(x, v_ref, "stream")
+        print(f"local step stream vs plain, {label}: whole {tuple(x.shape)}, one step: "
+              + json.dumps(res), flush=True)
+        if not step_ok(res):
+            raise AssertionError(f"local step stream disagrees with its plain version on the "
+                                 f"whole of {tuple(x.shape)}")
+        out["stream_whole"] = res
     return out
 
 
@@ -222,7 +260,8 @@ def time_local_step(blk, mode: str, bw: float, flops: float) -> dict:
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
 
     b, n, m = blk.shape
-    step = st.make_local_step(blk, mode)
+    step = st.make_local_step(blk, mode=mode)
+    plain = st.make_local_step(blk, use_kernel=False)
     v0 = torch.zeros((b, m), device="cuda")
 
     def loop():
@@ -237,7 +276,7 @@ def time_local_step(blk, mode: str, bw: float, flops: float) -> dict:
     bound_iters_ms, bound_iters_by = bound(step_bytes, step_ops * ITERS, bw, flops)
     return {
         "ms": cuda_ms(lambda: step(v0), reps=50),
-        "plain_ms": cuda_ms(lambda: st.local_step_plain(blk, v0), reps=10),
+        "plain_ms": cuda_ms(lambda: plain(v0), reps=10),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "ms_per_500_steps": cuda_ms(loop, reps=3),
@@ -324,6 +363,87 @@ def ranks_check() -> int:
     if failed:
         raise AssertionError(f"the row-sharded matcher on {size} GPUs disagrees at {failed}")
     return 0
+
+
+def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env) -> dict:
+    """One cycle of ``otgan_tpu_torch.train --preset preset`` on ``k`` GPUs
+    under torchrun, on synthetic data of two batches; checks the cycle, its
+    finite dist and entropy, and from rank 0's ``metrics.jsonl`` that the
+    row-sharded matcher ran the ``tier`` kernel and no plain version."""
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+
+    run_dir = os.path.join(REPO, "runs", f"chip_smoke_{k}gpu_{preset}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={k}", "-m", "otgan_tpu_torch.train", "--num_devices", str(k),
+           "--preset", preset, "--synthetic_data", "--synthetic_size", str(2 * batch),
+           "--log_every_steps", "1", "--save_dir", run_dir, *flags]
+    t0 = time.time()
+    out = run_group(cmd, MULTI_GPU_TIMEOUT, env)
+    print(out.stdout[-3000:], flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"torchrun --preset {preset} on {k} GPUs exited {out.returncode}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "step_ms" in r]
+    launches = [r["launches"] for r in recs if "epoch" in r][-1]
+    res = dict(gpus=k, preset=preset, batch=batch, matcher=recs[0]["matcher"],
+               init_spread=recs[0]["init_spread"], launches=launches,
+               wall_s=time.time() - t0,
+               steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")} for r in steps])
+    print(f"{k} GPUs, --preset {preset} {' '.join(flags)}: {json.dumps(res)}", flush=True)
+    if [r["kind"] for r in steps] != kinds:
+        raise AssertionError(f"expected the cycle {kinds}, got {[r['kind'] for r in steps]}")
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError(f"non-finite dist or entropy on {k} GPUs ({preset})")
+    if not res["matcher"].startswith("row-sharded"):
+        raise AssertionError(f"the run did not take the row-sharded matcher: {res['matcher']}")
+    if st.local_step_mode(batch // 2 // k, batch // 2) != tier:
+        raise AssertionError(f"the tier rule does not pick {tier} at batch {batch} on {k}")
+    if (launches[f"local_step_{tier}"] < 1 or launches["local_step_plain"] != 0
+            or launches["col_potential_plain"] != 0):
+        raise AssertionError(f"training on {k} GPUs did not run the {tier} kernel: {launches}")
+    return res
+
+
+def multi_gpu_phase(n_cards: int) -> dict:
+    """With more than one card: the row-sharded matcher over the ranks
+    (``--ranks``), then training on the row-sharded matcher once per
+    local-step tier. Returns the runs by tier, or ``{}`` on one card."""
+    import torch
+
+    if n_cards < 2:
+        print("multi-GPU phase: not run: one card is visible, and torchrun needs a card "
+              "per rank (NCCL refuses two ranks on one card). So the launch counts of the "
+              "local-step kernels on their own path, training on several GPUs, were not "
+              "read; their `launches` below are from phase 6, the row-sharded matcher in "
+              "a one-process NCCL group", flush=True)
+        return {}
+    k = 4 if n_cards >= 4 else 2  # a K that divides the presets' batches
+    env = dict(os.environ, PYTHONPATH=REPO)
+    torch.cuda.empty_cache()
+    check = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       f"--nproc_per_node={k}", os.path.join(REPO, "chip_smoke.py"),
+                       "--ranks"], MULTI_GPU_TIMEOUT, env)
+    print(check.stdout[-3000:], flush=True)
+    if check.returncode != 0:
+        print(check.stderr[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"the row-sharded matcher check on {k} GPUs exited "
+                             f"{check.returncode}")
+    ranks = json.loads(next(line for line in check.stdout.splitlines()
+                            if line.startswith("ranks_check: "))[len("ranks_check: "):])
+    # model_saving (batch 8000, 3:1, auto -> rows): block (4000/K, 4000), the
+    # stream tier; train_py at batch 1000 K, rows: block (500, 500 K), fused
+    multi = {"stream": train_on_gpus(k, "model_saving", 8000, ["--max_epochs", "2"],
+                                     ["disc"] + ["gen"] * 3, "stream", env)}
+    multi["stream"]["ranks"] = ranks
+    if "-> rows]" not in multi["stream"]["matcher"]:
+        raise AssertionError(f"auto did not resolve to rows: {multi['stream']['matcher']}")
+    multi["fused"] = train_on_gpus(
+        k, "train_py", 1000 * k, ["--batch_size", str(1000 * k), "--matching_layout", "rows",
+                                  "--max_epochs", "3"],
+        ["disc"] + ["gen"] * 5, "fused", env)
+    return multi
 
 
 def main() -> int:
@@ -446,7 +566,7 @@ def main() -> int:
     costs = two_batch_costs(unit_features(gen, 8000, 32768), unit_features(gen, 8000, 32768))
     x8000 = sk.scaled_logits(costs, LAM)  # batch 8000: (6, 4000, 4000)
     del costs
-    held["b8000_4gpu"] = hold_local_step(x8000, 4, "batch 8000 on 4 GPUs")
+    held["b8000_4gpu"] = hold_local_step(x8000, 4, "batch 8000 on 4 GPUs", whole=True)
     rank_stream = x8000[:, :1000].contiguous()
     del x8000
     held["ragged"] = hold_local_step(ragged_x, 3, "ragged")
@@ -511,50 +631,8 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
 
-    # ---- 7. several GPUs: one 3:1 cycle of the model_saving preset ----
-    n_cards = torch.cuda.device_count()
-    multi = None
-    if n_cards > 1:
-        k = 4 if n_cards >= 4 else 2  # a K that divides the presets' batches
-        multi_dir = os.path.join(REPO, "runs", "chip_smoke_multi")
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               f"--nproc_per_node={k}", "-m", "otgan_tpu_torch.train", "--num_devices", str(k),
-               "--preset", "model_saving", "--synthetic_data", "--synthetic_size", "8000",
-               "--max_epochs", "4", "--log_every_steps", "1", "--save_dir", multi_dir]
-        env = dict(os.environ, PYTHONPATH=REPO)
-        torch.cuda.empty_cache()
-        check = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                           f"--nproc_per_node={k}", os.path.join(REPO, "chip_smoke.py"),
-                           "--ranks"], MULTI_GPU_TIMEOUT, env)
-        print(check.stdout[-3000:], flush=True)
-        if check.returncode != 0:
-            print(check.stderr[-6000:], file=sys.stderr, flush=True)
-            raise AssertionError(f"the row-sharded matcher check on {k} GPUs exited "
-                                 f"{check.returncode}")
-        ranks = json.loads(next(line for line in check.stdout.splitlines()
-                                if line.startswith("ranks_check: "))[len("ranks_check: "):])
-        t0 = time.time()
-        out = run_group(cmd, MULTI_GPU_TIMEOUT, env)
-        print(out.stdout[-3000:], flush=True)
-        if out.returncode != 0:
-            print(out.stderr[-6000:], file=sys.stderr, flush=True)
-            raise AssertionError(f"torchrun on {k} GPUs exited {out.returncode}")
-        with open(os.path.join(multi_dir, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        steps_k = [r for r in recs if "step_ms" in r]
-        multi = dict(gpus=k, matcher=recs[0]["matcher"], wall_s=time.time() - t0, ranks=ranks,
-                     steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")}
-                            for r in steps_k])
-        print(f"{k} GPUs, --preset model_saving: {json.dumps(multi)}", flush=True)
-        if [r["kind"] for r in steps_k] != ["disc"] + ["gen"] * 3:
-            raise AssertionError(f"expected one 3:1 cycle, got {[r['kind'] for r in steps_k]}")
-        if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps_k):
-            raise AssertionError("non-finite dist or entropy on several GPUs")
-        if "-> rows]" not in multi["matcher"]:
-            raise AssertionError(f"auto did not resolve to rows: {multi['matcher']}")
-    else:
-        print("multi-GPU phase: not run: one card is visible, and torchrun needs a card "
-              "per rank (NCCL refuses two ranks on one card)", flush=True)
+    # ---- 7. several GPUs ----
+    multi = multi_gpu_phase(torch.cuda.device_count())
 
     # ---- 8. the kernels line ----
     kernels = [{
@@ -579,25 +657,31 @@ def main() -> int:
     }]
     no_library = ("no single PyTorch call computes the (m, s) column partials of a "
                   "Sinkhorn row step")
-    for mode, line, own, shapes in (
-            ("fused", 113, "6x313x2500", ["b5000_8gpu", "ragged"]),
-            ("stream", 218, "6x1000x4000", ["b8000_4gpu", "ragged"])):
+    for mode, line, own, shapes, names in (
+            ("fused", 113, "6x313x2500", ["b5000_8gpu", "ragged"], ["fused"]),
+            ("stream", 218, "6x1000x4000", ["b8000_4gpu", "ragged"],
+             ["stream", "stream_walk", "stream_whole"])):
         kernels.append({
             "name": f"sinkhorn_local_step_{mode}",
             "route": "cuda",
             "source": "otgan_tpu_torch/csrc/sinkhorn_step.cu",
             "replaces": f"otgan_tpu/ops/sinkhorn_pallas_step.py:{line}",
-            "launches": sharded[mode]["launches"],
-            "max_abs_err": max(held[k][mode]["max_abs_dP"] for k in shapes),
+            "launches": (multi[mode]["launches"][f"local_step_{mode}"] if multi
+                         else sharded[mode]["launches"]),
+            "launches_from": (f"rank 0 of training on {multi[mode]['gpus']} GPUs "
+                              f"({multi[mode]['preset']})" if multi else
+                              "phase 6: the row-sharded matcher in a one-process NCCL group "
+                              "(one card: the training path's own counts were not read)"),
+            "max_abs_err": max(held[k][n]["max_abs_dP"] for k in shapes for n in names
+                               if "max_abs_dP" in held[k].get(n, {})),
             **timing[mode][own],
             "at_both_rank_blocks": timing[mode],
             "library_ms": None,
             "library_null_reason": no_library,
-            "held": {k: held[k][mode] for k in held},
+            "held": {k: {n: held[k][n] for n in names if n in held[k]} for k in held},
             "path": sharded[mode],
+            "multi_gpu_training": multi.get(mode),
         })
-    if multi is not None:
-        kernels[-1]["multi_gpu_model_saving"] = multi
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,15 @@
+#!/usr/bin/env python3
 """Measures the row-sharded matcher's local-step kernels on one GPU:
-``python -m otgan_tpu_torch.kernels.measure_local_step`` from the root of a
-checkout.
+``python3 measure_local_step.py`` from the root of a checkout.
 
 1. The time of one step of each tier at the row blocks of a multi-GPU run,
    and of the stream tier at 1, 2, 4, 8 and 16 blocks per SM (the choice
-   of ``sinkhorn_step_cuda._STREAM_CTAS_PER_SM``).
+   of ``sinkhorn_step_cuda.STREAM_CTAS_PER_SM``).
 2. One row-sharded match at batch 2000 (d 32768, lam 500, 500 iterations)
-   in a one-process NCCL group: its wall time, then a ``torch.profiler``
-   trace of another for the device time by kernel; their ratio is the
-   device's busy share. Then the time of one all-reduce of the loop's
-   (6, 1000) partials alone.
+   in a one-process NCCL group under ``torch.profiler``: the wall time and
+   the device time by kernel of that same run, and their ratio, the
+   device's busy share while profiled. Then the time of one all-reduce of
+   the loop's (6, 1000) partials alone.
 
 It prints the card's ``nvidia-smi`` name and power limit first, and one
 JSON line of results last. It needs a card and raises without one.
@@ -18,13 +18,12 @@ JSON line of results last. It needs a card and raises without one.
 from __future__ import annotations
 
 import json
-import socket
-import subprocess
 import time
 
 import torch
 import torch.distributed as dist
 
+from chip_smoke import ITERS, LAM, card_line, cuda_ms, free_port, unit_features
 from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
 from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
@@ -33,39 +32,22 @@ SHAPES = [(6, 313, 2500), (6, 1000, 1000), (6, 1000, 4000), (6, 4000, 4000)]
 PER_SM = (1, 2, 4, 8, 16)
 
 
-def device_ms(fn, reps: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def sweep(gen) -> dict:
     out = {}
-    chosen = st._STREAM_CTAS_PER_SM
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    try:
-        for shape in SHAPES:
-            b, n, m = shape
-            x = -25.0 * torch.rand(shape, generator=gen, device="cuda")
-            x = (x - x.amax(-1, keepdim=True)).contiguous()
-            v = torch.zeros((b, m), device="cuda")
-            step = st.make_local_step(x, "fused")
-            res = {"fused": device_ms(lambda: step(v), 50)}
-            for per_sm in PER_SM:
-                st._STREAM_CTAS_PER_SM = per_sm
-                step = st.make_local_step(x, "stream")
-                res[f"stream_{per_sm}_per_sm_{st.stream_ctas(b, n, sms)}_blocks"] = device_ms(
-                    lambda: step(v), 50)
-            out[str(list(shape))] = res
-            print(f"local step at {shape}, ms: {json.dumps(res)}", flush=True)
-    finally:
-        st._STREAM_CTAS_PER_SM = chosen
+    for shape in SHAPES:
+        b, n, m = shape
+        x = -25.0 * torch.rand(shape, generator=gen, device="cuda")
+        x = (x - x.amax(-1, keepdim=True)).contiguous()
+        v = torch.zeros((b, m), device="cuda")
+        fused = st.make_local_step(x, mode="fused")
+        res = {"fused": cuda_ms(lambda: fused(v), 50)}
+        for per_sm in PER_SM:
+            n_ctas = st.stream_ctas(b, n, sms, per_sm)
+            step = st.make_local_step(x, mode="stream", n_ctas=n_ctas)
+            res[f"stream_{per_sm}_per_sm_{n_ctas}_blocks"] = cuda_ms(lambda: step(v), 50)
+        out[str(list(shape))] = res
+        print(f"local step at {shape}, ms: {json.dumps(res)}", flush=True)
     return out
 
 
@@ -74,23 +56,18 @@ def profile_match(gen, batch: int = 2000) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     true_f32()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
     try:
-        f = [torch.randn((batch, 32768), generator=gen, device="cuda") for _ in range(2)]
-        fa, fb = (t / t.norm(dim=1, keepdim=True) for t in f)
-        matcher = make_sharded_two_batch_matcher(None, 500.0, 500, use_pallas=True)
+        fa, fb = unit_features(gen, batch, 32768), unit_features(gen, batch, 32768)
+        matcher = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
         matcher(fa, fb)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        matcher(fa, fb)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             matcher(fa, fb)
             torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         # what one all-reduce of the loop's (6, N) partials costs alone
         part = torch.zeros((6, batch // 2), device="cuda")
         dist.all_reduce(part)
@@ -106,12 +83,12 @@ def profile_match(gen, batch: int = 2000) -> dict:
     kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    res = {"batch": batch, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    res = {"batch": batch, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms,
            "all_reduce_us_host": host_us, "all_reduce_us_wall": allreduce_us,
            "top_device": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in kernels[:12]]}
-    print(f"row-sharded match at batch {batch}: {wall_ms:.1f} ms wall, device kernels "
-          f"{busy_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f})", flush=True)
+    print(f"row-sharded match at batch {batch}, profiled: {wall_ms:.1f} ms wall, device "
+          f"kernels {busy_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f})", flush=True)
     for r in res["top_device"]:
         print(f"  {r['ms']:9.3f} ms  x{r['count']:5d}  {r['name']}", flush=True)
     print(f"one all-reduce of a (6, {batch // 2}) float32 tensor: {host_us:.1f} us to "
@@ -122,10 +99,7 @@ def profile_match(gen, batch: int = 2000) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("measure_local_step needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {"card": card, "sweep_ms": sweep(gen), "profile": profile_match(gen)}

@@ -58,7 +58,6 @@ from otgan_tpu_torch.ops.matching import (
 from otgan_tpu_torch.parallel.mesh import (
     all_gather_rows,
     all_reduce_sum,
-    check_replicated,
     local_rows,
     rank_and_size,
     replicate,
@@ -336,7 +335,8 @@ class Engine:
         """Random V from ``seed``, then g and b from the batch ``x_init``
         (uint8 or float NHWC) and as many latents. Returns the state and
         the critic's feature count. Several ranks each run it on the whole
-        batch, then take rank 0's parameters and check that all agree."""
+        batch, then take rank 0's parameters; ``init_spread`` is how far any
+        rank's own init was from them (0.0 when the ranks agreed)."""
         cpu_rng = torch.Generator().manual_seed(seed)
         gen, disc = self._build_models()
         reset_parameters(disc, cpu_rng)
@@ -356,7 +356,6 @@ class Engine:
             # parameters win, and init_spread records how far the others were
             params = [*gen.parameters(), *disc.parameters()]
             self.init_spread = replicate(params, self.group)
-            check_replicated(params, self.group)
         if hasattr(self, "_auto_matchers"):
             # --matching_layout auto, now that the feature count is known
             self.resolve_auto_layout(int(f.shape[-1]))

@@ -22,8 +22,9 @@ the TPU, the stream tier launches its kernel on the card: the TPU's
 counterpart here. The kernels mask ragged edges by bounds, so the TPU's tile
 padding (``pad_to_grid``, ``pad_to_stream_grid``) is not ported.
 
-:func:`make_local_step` takes the plain version only for a tensor on the
-CPU. For a CUDA tensor it launches a kernel or raises.
+:func:`make_local_step` takes the plain version for a tensor on the CPU, or
+where the caller turns the kernels off (``--no_use_pallas``). Otherwise, for
+a CUDA tensor, it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ _PANELS = (512, 256, 128, 64, 32, 16, 8)
 _PANEL_CELLS = 512 * 2560
 # blocks per SM that the stream tier's grid aims for: of 1, 2, 4, 8 and 16,
 # 8 was fastest at (6, 4000, 4000) and tied at (6, 1000, 4000) on an H100
-# (otgan_tpu_torch/kernels/measure_local_step.py; numbers in PERF.md)
-_STREAM_CTAS_PER_SM = 8
+# (measure_local_step.py at the repo root; numbers in PERF.md)
+STREAM_CTAS_PER_SM = 8
 
 # calls that launched a kernel (one per step: the partials launch and its
 # combine) and plain steps; chip_smoke.py zeroes them around its paths
@@ -116,17 +117,17 @@ def _bind():
     return lib
 
 
-def stream_ctas(b: int, n_loc: int, sm_count: int) -> int:
+def stream_ctas(b: int, n_loc: int, sm_count: int, per_sm: int = STREAM_CTAS_PER_SM) -> int:
     """Blocks per matrix of the stream tier: enough to give every SM
-    ``_STREAM_CTAS_PER_SM`` blocks, each walking the same number of panels."""
+    ``per_sm`` blocks, each walking the same number of panels."""
     rows = _bind().otgan_step_rows_per_panel()
     n_panels = -(-n_loc // rows)
-    target = max(1, -(-_STREAM_CTAS_PER_SM * sm_count // b))
+    target = max(1, -(-per_sm * sm_count // b))
     per_cta = -(-n_panels // target)
     return -(-n_panels // per_cta)
 
 
-def _cuda_step(x: torch.Tensor, mode: str) -> Step:
+def _cuda_step(x: torch.Tensor, mode: str, n_ctas: Optional[int]) -> Step:
     if not (x.dtype == torch.float32 and x.dim() == 3 and x.is_contiguous()):
         raise ValueError(
             "the local-step kernels need a contiguous (b, n_loc, N) float32 "
@@ -138,6 +139,8 @@ def _cuda_step(x: torch.Tensor, mode: str) -> Step:
     if max(b, n, m) >= 2**31 or b > 65535:
         raise ValueError(f"row block {tuple(x.shape)} exceeds the kernels' grid")
     lib = _bind()
+    if n_ctas is not None and (mode != "stream" or n_ctas < 1):
+        raise ValueError(f"n_ctas={n_ctas} is for the stream tier, at least 1")
     if mode == "fused":
         n_parts = -(-n // lib.otgan_step_rows_per_panel())
     elif mode == "stream":
@@ -147,7 +150,7 @@ def _cuda_step(x: torch.Tensor, mode: str) -> Step:
                 f"({lib.otgan_step_stream_max_cols()} columns)"
             )
         sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-        n_parts = stream_ctas(b, n, sm_count)
+        n_parts = n_ctas or stream_ctas(b, n, sm_count)
     else:
         raise ValueError(f"no local-step kernel for tier {mode!r} at {tuple(x.shape)}")
     with torch.cuda.device(x.device):
@@ -182,14 +185,17 @@ def _plain_step(v: torch.Tensor, x: torch.Tensor):
     return local_step_plain(x, v)
 
 
-def make_local_step(x: torch.Tensor, mode: Optional[str] = None) -> Step:
+def make_local_step(x: torch.Tensor, use_kernel: bool = True, mode: Optional[str] = None,
+                    n_ctas: Optional[int] = None) -> Step:
     """The local step on the row block ``x`` ``(b, n_loc, N)`` as a function
-    ``v (b, N) -> (m, s)``: a kernel of the tier ``mode`` (default
-    :func:`local_step_mode`) for a tensor on the card, the plain version
-    for one on the CPU. The kernel's outputs and scratch are allocated once
-    and reused: the ``(m, s)`` of a call are overwritten by the next."""
-    if x.is_cuda:
-        return _cuda_step(x, mode or local_step_mode(x.shape[1], x.shape[2]))
-    if x.device.type != "cpu":
+    ``v (b, N) -> (m, s)``. For a tensor on the card and ``use_kernel``, a
+    kernel of the tier ``mode`` (default :func:`local_step_mode`); the
+    stream tier runs ``n_ctas`` blocks per matrix (default
+    :func:`stream_ctas`). Otherwise the plain version, counted as such. The
+    kernel's outputs and scratch are allocated once and reused: the
+    ``(m, s)`` of a call are overwritten by the next."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no local-step kernel for device {x.device}")
+    if use_kernel and x.is_cuda:
+        return _cuda_step(x, mode or local_step_mode(x.shape[1], x.shape[2]), n_ctas)
     return functools.partial(_plain_step, x=x)

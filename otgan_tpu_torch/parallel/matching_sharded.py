@@ -46,7 +46,7 @@ import torch.distributed as dist
 
 from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
 from otgan_tpu_torch.ops.matching import MatchedFeatures
-from otgan_tpu_torch.ops.sinkhorn_step_cuda import local_step_plain, make_local_step
+from otgan_tpu_torch.ops.sinkhorn_step_cuda import make_local_step
 from otgan_tpu_torch.parallel.mesh import (
     ProcessGroup,
     all_gather_rows,
@@ -78,10 +78,7 @@ def sharded_sinkhorn_rows(
     softmax that follows."""
     x = x_loc.detach().float()
     x = (x - torch.amax(x, dim=-1, keepdim=True)).contiguous()
-    if use_kernel:
-        step = make_local_step(x)
-    else:
-        step = lambda v: local_step_plain(x, v)  # noqa: E731
+    step = make_local_step(x, use_kernel)
 
     def iterate(v):
         m_loc, s_loc = step(v)

@@ -12,8 +12,8 @@ replicates the state, the port has
   the GLOBAL batch (drawn from the same seeded generators) and keeps its
   contiguous rows ``[k B/K, (k+1) B/K)``, so a K-rank run sees the data of
   a 1-device run;
-* :func:`replicate`: rank 0's tensors broadcast to every rank, and
-  :func:`check_replicated`, which raises unless every rank holds the same.
+* :func:`replicate`: rank 0's tensors broadcast to every rank, with the
+  largest difference any rank had from them before.
 
 The collectives on row blocks use ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor``: newer PyTorch names them ``*_single`` and warns,
@@ -116,14 +116,3 @@ def replicate(tensors: Iterable[torch.Tensor], group: ProcessGroup) -> float:
         t.copy_(src[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
     return float(diff)
-
-
-@torch.no_grad()
-def check_replicated(tensors: Iterable[torch.Tensor], group: ProcessGroup) -> None:
-    """Raise on every rank unless all ranks hold the same ``tensors``."""
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    hi, lo = flat.clone(), flat.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
-    if not torch.equal(hi, lo):
-        raise RuntimeError("parameters differ across ranks after the broadcast")

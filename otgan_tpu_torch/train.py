@@ -6,7 +6,9 @@ of the JAX package's trainer (``config.py``). It initialises the models
 batches under the reference's G:D schedule (``train.py:196-231``), logging
 JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean generator
 and critic distances and entropy, and with ``--log_every_steps N`` every
-N-th step's dist, entropy and wall time. Checkpoints, sample grids,
+N-th step's dist, entropy and wall time, and per epoch the launches of
+each Sinkhorn kernel and of its plain version since the first step
+(``launches``, this rank's). Checkpoints, sample grids,
 Inception/FID eval and host prefetch come in later slices.
 
 On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
@@ -30,6 +32,7 @@ import torch.distributed as dist
 from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namespace
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
 from otgan_tpu_torch.engine import Engine, TrainState
+from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_step_cuda
 from otgan_tpu_torch.parallel.mesh import init_from_env
 from otgan_tpu_torch.utils.metrics import MetricLogger
 
@@ -46,6 +49,13 @@ def make_loader(cfg: TrainConfig, rng: np.random.Generator) -> DataLoader:
                           data=synthetic(rng, cfg.synthetic_size), out_dtype=out_dtype)
     return DataLoader(cfg.data_dir, subset="train", batch_size=cfg.batch_size,
                       rng=rng, out_dtype=out_dtype)
+
+
+def kernel_launches() -> dict:
+    """The Sinkhorn kernels' launch counters, and their plain versions'."""
+    return {"col_potential": sinkhorn_cuda.launches["kernel"],
+            "col_potential_plain": sinkhorn_cuda.launches["plain"],
+            **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()}}
 
 
 class _NoLogger:
@@ -86,7 +96,8 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
     steps: List[dict] = []
     stride = cfg.log_every_steps
     with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger:
-        logger.log(state.step, matcher=engine.matcher_desc)
+        logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread)
+        launches0 = kernel_launches()
         for epoch in range(cfg.max_epochs):
             begin = time.time()
             dist_gen, dist_disc, entropies = [], [], []
@@ -109,8 +120,9 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                 vals["dist_gen"] = float(torch.stack(dist_gen).mean())
             if dist_disc:
                 vals["dist_disc"] = float(torch.stack(dist_disc).mean())
+            launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
             logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
-                       entropy=float(torch.stack(entropies).mean()), **vals)
+                       entropy=float(torch.stack(entropies).mean()), launches=launches, **vals)
     return TrainResult(state, steps)
 
 

@@ -91,10 +91,29 @@ def test_local_step_kernels_match_plain(cuda_device, shape, mode):
     x = torch.from_numpy(rng.uniform(-50, 0, shape).astype(np.float32)).to(cuda_device)
     v = torch.from_numpy(rng.uniform(-5, 5, (b, m)).astype(np.float32)).to(cuda_device)
     before = dict(sinkhorn_step_cuda.launches)
-    m_k, s_k = sinkhorn_step_cuda.make_local_step(x, mode)(v)
+    m_k, s_k = sinkhorn_step_cuda.make_local_step(x, mode=mode)(v)
     torch.cuda.synchronize()
     assert sinkhorn_step_cuda.launches[mode] == before[mode] + 1
     assert sinkhorn_step_cuda.launches["plain"] == before["plain"]
+    m_ref, s_ref = sinkhorn_step_cuda.local_step_plain(x, v)
+    torch.testing.assert_close(m_k, m_ref, atol=1e-6, rtol=0)
+    torch.testing.assert_close(s_k, s_ref, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_ctas", [((6, 4000, 4000), None), ((6, 1000, 4000), 4),
+                                          ((6, 313, 2500), 3), ((2, 37, 50), 1)])
+def test_stream_blocks_walking_several_panels_match_plain(cuda_device, shape, n_ctas):
+    """The stream tier where each block walks several 16-row panels, so the
+    online rescale of its column accumulators runs: (6, 4000, 4000) on the
+    default grid (2 panels a block on a 132-SM card), the others on a few
+    blocks (up to 16 panels each, the last one ragged). Inputs and limits
+    as above."""
+    rng = np.random.default_rng(1)
+    b, n, m = shape
+    x = torch.from_numpy(rng.uniform(-50, 0, shape).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.uniform(-5, 5, (b, m)).astype(np.float32)).to(cuda_device)
+    m_k, s_k = sinkhorn_step_cuda.make_local_step(x, mode="stream", n_ctas=n_ctas)(v)
     m_ref, s_ref = sinkhorn_step_cuda.local_step_plain(x, v)
     torch.testing.assert_close(m_k, m_ref, atol=1e-6, rtol=0)
     torch.testing.assert_close(s_k, s_ref, atol=0, rtol=1e-5)
@@ -110,4 +129,6 @@ def test_local_step_bad_inputs_raise(cuda_device):
     with pytest.raises(ValueError):
         sinkhorn_step_cuda.make_local_step(x)(torch.zeros(2, 31, device=cuda_device))
     with pytest.raises(ValueError, match="tier"):
-        sinkhorn_step_cuda.make_local_step(x, "xla")
+        sinkhorn_step_cuda.make_local_step(x, mode="xla")
+    with pytest.raises(ValueError, match="stream tier"):
+        sinkhorn_step_cuda.make_local_step(x, mode="fused", n_ctas=2)

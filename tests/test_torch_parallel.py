@@ -264,9 +264,10 @@ def test_num_devices_must_match_ranks():
         Engine(port_config.TrainConfig(num_devices=2), device="cpu")
 
 
-def test_torchrun_cli_two_ranks(tmp_path):
+def _torchrun_two_ranks(tmp_path, *flags):
     """``torchrun --nproc_per_node 2 -m otgan_tpu_torch.train --device cpu``:
-    one 1:1 cycle of full-width DCGAN at batch 4; only rank 0 writes."""
+    one 1:1 cycle of full-width DCGAN at batch 4, 5 Sinkhorn iterations; the
+    records of ``metrics.jsonl`` after checking that only rank 0 wrote."""
     out_dir = tmp_path / "run"
     cmd = [
         sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
@@ -274,19 +275,43 @@ def test_torchrun_cli_two_ranks(tmp_path):
         "--synthetic_data", "--synthetic_size", "4", "--batch_size", "4",
         "--nr_gen_per_disc", "1", "--max_epochs", "2", "--nr_sinkhorn_iter", "5",
         "--log_every_steps", "1", "--compute_dtype", "float32", "--save_dir", str(out_dir),
+        *flags,
     ]
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert sorted(os.listdir(out_dir)) == ["config.json", "metrics.jsonl"]
+    assert out.stdout.count("model has a hidden representation") == 1
     recs = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if "step_ms" in r]
+    assert [r["kind"] for r in steps] == ["disc", "gen"]
+    assert all(np.isfinite(r["dist"]) and np.isfinite(r["entropy"]) for r in steps)
+    assert recs[0]["init_spread"] == 0.0  # every rank's init equalled rank 0's
+    return recs
+
+
+def test_torchrun_cli_two_ranks(tmp_path):
+    """Layout auto picks matrix-parallel: kernel 1's path, no local step."""
+    recs = _torchrun_two_ranks(tmp_path)
     # auto: 4 x 4 x 32768 floats of accumulator fit the 4 GB budget
     assert recs[0]["matcher"] == (
         "matrix-parallel (two-batch, whole matrices round-robined over the 2-device "
         "mesh) [auto: estimated 0.00 GB matrix-parallel residency vs 4.0 GB budget "
         "-> matrices]")
-    steps = [r for r in recs if "step_ms" in r]
-    assert [r["kind"] for r in steps] == ["disc", "gen"]
-    assert all(np.isfinite(r["dist"]) and np.isfinite(r["entropy"]) for r in steps)
-    assert out.stdout.count("model has a hidden representation") == 1
+    launches = [r["launches"] for r in recs if "epoch" in r][-1]
+    assert launches["col_potential_plain"] >= 2 and launches["col_potential"] == 0
+    assert {k: n for k, n in launches.items() if k.startswith("local_step")} == {
+        "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 0}
+
+
+def test_torchrun_cli_two_ranks_rows(tmp_path):
+    """``--matching_layout rows``: rank 0 logs 5 local steps per match, all
+    plain on the CPU, and no column-potential call."""
+    recs = _torchrun_two_ranks(tmp_path, "--matching_layout", "rows")
+    assert recs[0]["matcher"] == (
+        "row-sharded (two-batch, whole local halves on the 2-device mesh)")
+    assert [r["launches"] for r in recs if "epoch" in r] == [
+        {"col_potential": 0, "col_potential_plain": 0, "local_step_fused": 0,
+         "local_step_stream": 0, "local_step_plain": 5 * steps}
+        for steps in (1, 2)]

@@ -103,6 +103,14 @@ def _np(m):
     return [t.numpy() for t in m[:4]] + [float(m.entropy)]
 
 
+def _same_on_every_rank(tensors) -> bool:
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return torch.equal(hi, lo)
+
+
 # ---- tasks ----
 
 def rows_matcher(rank, size, fa, fb, lam, iters, single=False, tol=0.0, batch=None):
@@ -138,7 +146,6 @@ def engine_step(rank, size, cfg, state_path, x_init, x, z, kind):
     from otgan_tpu_torch.config import TrainConfig
     from otgan_tpu_torch.convert import state_from_jax, unflatten_params
     from otgan_tpu_torch.engine import Engine
-    from otgan_tpu_torch.parallel.mesh import check_replicated
 
     torch.set_num_threads(2)
     eng = Engine(TrainConfig(**cfg), device="cpu")
@@ -148,7 +155,8 @@ def engine_step(rank, size, cfg, state_path, x_init, x, z, kind):
     step = eng.disc_step if kind == "disc" else eng.gen_step
     state, met = step(state, x, z)
     module = state.disc if kind == "disc" else state.gen
-    check_replicated(list(module.parameters()), None)
+    if not _same_on_every_rank(module.parameters()):
+        raise RuntimeError("parameters differ across ranks after the step")
     return dict(
         dist=float(met.dist), entropy=float(met.entropy), nf=nf,
         init_spread=eng.init_spread, desc=eng.matcher_desc,
