@@ -8,8 +8,9 @@ Run from the root of a checkout, it
 3. holds the column-potential kernel against its plain PyTorch version on
    the card, at the main path's shapes (6 x 2500^2, lam = 500, 500
    iterations) and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5 and
-   |d entropy| <= 1e-4; then the kernel path against a float64 Sinkhorn on
-   a small input;
+   |d entropy| <= 1e-4; then kernel 1's path, and the public entry (which
+   takes the resident tier at that size), against a float64 Sinkhorn on a
+   small input;
 4. drives the single-GPU path, ``otgan_tpu_torch.train --preset train_py
    --synthetic_data --synthetic_size 10000`` for one 5:1 cycle (6 steps of
    global batch 5000, bf16 model compute), with every launch counter set
@@ -41,11 +42,27 @@ Run from the root of a checkout, it
    the tier's kernel must have launched and no plain version run. On one
    card it says that it skipped this, and that the local-step kernels'
    launches then come from phase 6, not from their training path;
-8. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
+8. holds the resident kernel (one launch per match, the matrices in shared
+   memory) against its plain version and against kernel 1's path at lam =
+   500, 500 iterations: (6, 128, 128) (the DCGAN at batch 256), (6, 256,
+   256) (the toy at batch 512), (1, 768, 768), a ragged (6, 100, 228) and
+   the single-batch (3, 128, 128) with the +999 diagonal (P within 1e-5,
+   entropy within 1e-4, diag(P) < 1e-6), with the three times and the
+   bound at each;
+9. drives the toy MED-GAN with the notebook's settings (batch 512, lam 50,
+   10 iterations, 1:1) for 2 short epochs with a checkpoint, counters
+   zeroed just before: rank 0's ``launches`` must show the resident
+   kernel and nothing else; then resumes one epoch with ``--load_params``
+   (it must start at epoch 2) and runs ``sample.py --ema --num_samples
+   1000`` on the run (finite samples; the mode coverage is printed);
+10. drives one 5:1 cycle of the DCGAN at its default batch 256: 6 resident
+   launches and nothing else; then ``sample.py`` writes a PNG grid whose
+   header and size are checked;
+11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time and the bound for the
    same work on this card;
-9. prints ``{"ok": true, "device": {...}}`` as its last line.
+12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without CUDA it exits 1 at once.
@@ -56,10 +73,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 LAM, ITERS, BATCH = 500.0, 500, 5000
@@ -70,6 +89,7 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12), "H100": (3.3
 # float32 operations per matrix element per iteration in the kernel: row
 # step add, max, subtract, exp, sum; column step the same five
 OPS_PER_CELL_ITER = 10
+TOY_EPOCH_BATCHES = 8  # batches of the toy run's short epochs
 
 
 def card_line() -> str:
@@ -146,6 +166,76 @@ def sinkhorn_f64(cost, lam: float, iters: int):
     p = torch.softmax(log_a, dim=-1)
     ent = -(p * torch.log_softmax(log_a, dim=-1)).sum(-1).mean(-1)
     return p, ent
+
+
+def resident_shapes(gen) -> dict:
+    """The resident tier's costs: the DCGAN at batch 256 (6 x 128^2), the
+    toy at batch 512 (6 x 256^2), the point of ``bench.py:541-548`` (1 x
+    768^2), a ragged (6, 100, 228), and the single-batch 3 x 128^2 with the
+    +999 self-match diagonal."""
+    import torch
+    from otgan_tpu_torch.ops.costs import cosine_cost, scaled_sqeuclidean_cost
+    from otgan_tpu_torch.ops.matching import two_batch_costs
+
+    toy = torch.randn((512, 16), generator=gen, device="cuda")
+    fa, fb = unit_features(gen, 128, 32768), unit_features(gen, 128, 32768)
+    eye = 999.0 * torch.eye(128, device="cuda")
+    return {
+        "dcgan_b256": two_batch_costs(unit_features(gen, 256, 32768),
+                                      unit_features(gen, 256, 32768)),
+        "toy_b512": two_batch_costs(toy, torch.randn((512, 16), generator=gen, device="cuda"),
+                                    scaled_sqeuclidean_cost),
+        "bench_768": cosine_cost(unit_features(gen, 768, 32768),
+                                 unit_features(gen, 768, 32768))[None],
+        "ragged": torch.stack([cosine_cost(unit_features(gen, 100, 32768),
+                                           unit_features(gen, 228, 32768)) for _ in range(6)]),
+        "single_b128": torch.stack([cosine_cost(fa, fa) + eye, cosine_cost(fb, fb) + eye,
+                                    cosine_cost(fa, fb)]),
+    }
+
+
+def hold_resident(costs, label: str, bw: float, flops: float) -> dict:
+    """The resident kernel against its plain version and against kernel 1's
+    path on ``costs`` (b, N, M), at LAM and ITERS; raises past P_TOL and
+    ENT_TOL. Then the three times and the kernel's bound."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+    from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
+
+    p, e = rc.sinkhorn_resident_cuda(costs, LAM, ITERS)
+    p_ref, e_ref = rc.sinkhorn_resident_plain(costs, LAM, ITERS)
+    p_k1, e_k1 = sk.sinkhorn_assignment_kernel(costs, LAM, ITERS)
+    torch.cuda.synchronize()
+    b, n, m = costs.shape
+    res = {
+        "shape": [b, n, m],
+        "cluster": list(rc.resident_plan(n, m)),
+        "max_abs_dP": float((p - p_ref).abs().max()),
+        "max_abs_dentropy": float((e - e_ref).abs().max()),
+        "max_abs_dP_vs_kernel1": float((p - p_k1).abs().max()),
+        "max_abs_dentropy_vs_kernel1": float((e - e_k1).abs().max()),
+        "finite": bool(torch.isfinite(p).all() and torch.isfinite(e).all()),
+    }
+    if label == "single_b128":
+        res["max_diag_P"] = float(torch.diagonal(p[:2], dim1=1, dim2=2).max())
+    print(f"resident kernel vs plain and kernel 1, {label} {tuple(costs.shape)} lam={LAM} "
+          f"iters={ITERS}: " + json.dumps(res), flush=True)
+    if not (res["finite"] and max(res["max_abs_dP"], res["max_abs_dP_vs_kernel1"]) <= P_TOL
+            and max(res["max_abs_dentropy"], res["max_abs_dentropy_vs_kernel1"]) <= ENT_TOL
+            and res.get("max_diag_P", 0.0) < 1e-6):
+        raise AssertionError(f"the resident kernel disagrees at {label}")
+    # C read once, P written once; OPS_PER_CELL_ITER per cell per iteration
+    bound_ms, bound_by = bound(4 * (2 * b * n * m + b), OPS_PER_CELL_ITER * b * n * m * ITERS,
+                               bw, flops)
+    res.update(
+        ms=cuda_ms(lambda: rc.sinkhorn_resident_cuda(costs, LAM, ITERS), reps=20),
+        kernel1_ms=cuda_ms(lambda: sk.sinkhorn_assignment_kernel(costs, LAM, ITERS), reps=5),
+        plain_ms=cuda_ms(lambda: rc.sinkhorn_resident_plain(costs, LAM, ITERS), reps=2),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"resident tier at {label} {tuple(costs.shape)}: kernel {res['ms']:.4f} ms, kernel 1 "
+          f"{res['kernel1_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+    return res
 
 
 STEP_M_TOL, STEP_S_RTOL = 1e-6, 1e-5  # one local step: m absolute, s relative
@@ -446,6 +536,129 @@ def multi_gpu_phase(n_cards: int) -> dict:
     return multi
 
 
+def reset_all_counts() -> None:
+    from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
+
+    for mod in (sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+        mod.reset_launch_counts()
+
+
+def epoch_records(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "epoch" in r]
+
+
+def check_resident_path(launches: dict, what: str, want=None) -> None:
+    """The run launched the resident kernel (``want`` times, when given)
+    and nothing else: no kernel 1, no local step, no plain version."""
+    others = {k: n for k, n in launches.items() if k != "resident"}
+    if launches["resident"] < 1 or (want is not None and launches["resident"] != want) or any(
+            others.values()):
+        raise AssertionError(f"{what} did not run the resident tier alone: {launches}")
+
+
+def toy_phase(card: str) -> dict:
+    """The toy MED-GAN as its user runs it: the notebook's settings
+    (``tests/test_toy_e2e.py:35-43``; batch 512, lam 50, 10 iterations, G lr
+    3e-4, D lr 6e-5, 1:1) for 2 short epochs with a checkpoint after the
+    second, every counter zeroed just before and read just after, then a
+    resume for one more epoch, then ``sample.py --ema`` on the run."""
+    import numpy as np
+    from otgan_tpu_torch import sample as sample_mod
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.data.toy import mode_coverage
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_toy")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--model", "toy_mlp", "--batch_size", "512", "--sinkhorn_lambda", "50",
+            "--nr_sinkhorn_iter", "10", "--learning_rate_gen", "3e-4",
+            "--learning_rate_disc", "6e-5", "--nr_gen_per_disc", "1", "--save_every_epochs", "1",
+            "--log_every_steps", "1", "--save_dir", run_dir]
+    os.environ["OTGAN_TOY_EPOCH_BATCHES"] = str(TOY_EPOCH_BATCHES)
+    try:
+        reset_all_counts()
+        t0 = time.time()
+        first = train_mod.main(argv + ["--max_epochs", "2"])
+        wall = time.time() - t0
+        counts = train_mod.kernel_launches()
+        launches = epoch_records(run_dir)[-1]["launches"]
+        t0 = time.time()
+        resumed = train_mod.main(argv + ["--max_epochs", "3", "--load_params"])
+        resume_wall = time.time() - t0
+    finally:
+        del os.environ["OTGAN_TOY_EPOCH_BATCHES"]
+    epochs = epoch_records(run_dir)
+    check_resident_path(launches, "the toy run (rank 0's metrics.jsonl)")
+    check_resident_path(counts, "the toy run (in-process counters)")
+    steps_ms = [r["step_ms"] for r in first.steps]
+    res = dict(launches=launches, steps=len(first.steps), wall_s=wall,
+               median_step_ms=float(np.median(steps_ms)), resume_wall_s=resume_wall,
+               resumed_epochs=[r["epoch"] for r in epochs[2:]],
+               resumed_steps=[{k: r[k] for k in ("kind", "dist", "entropy")}
+                              for r in resumed.steps[:2]])
+    if [r["epoch"] for r in epochs] != [0, 1, 2] or resumed.state.step != 3 * TOY_EPOCH_BATCHES:
+        raise AssertionError(f"the resume did not start at epoch 2: {res}")
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"])
+               for r in first.steps + resumed.steps):
+        raise AssertionError("non-finite dist or entropy on the toy path")
+    x = sample_mod.main(["--save_dir", run_dir, "--ema", "--num_samples", "1000"])
+    if x.shape != (1000, 2) or not np.isfinite(x).all():
+        raise AssertionError(f"sample.py gave {x.shape} samples, finite: {np.isfinite(x).all()}")
+    res["ema_mode_coverage"] = mode_coverage(x)  # printed, not held: 3 short epochs
+    print(f"toy path (batch 512, {TOY_EPOCH_BATCHES} batches an epoch) on {card}: "
+          + json.dumps(res), flush=True)
+    return res
+
+
+def dcgan_b256_phase(card: str) -> dict:
+    """One 5:1 cycle of the DCGAN at its default batch 256 (6 x 128^2, the
+    resident tier: 6 launches, nothing else), two epochs of 3 batches so a
+    checkpoint is written, then ``sample.py`` writes a PNG grid whose
+    signature, header and size are checked."""
+    import struct
+
+    from otgan_tpu_torch import sample as sample_mod
+    from otgan_tpu_torch import train as train_mod
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_b256")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_all_counts()
+    t0 = time.time()
+    result = train_mod.main(["--synthetic_data", "--synthetic_size", "768", "--max_epochs", "2",
+                             "--save_every_epochs", "1", "--log_every_steps", "1",
+                             "--save_dir", run_dir])
+    wall = time.time() - t0
+    counts = train_mod.kernel_launches()
+    launches = epoch_records(run_dir)[-1]["launches"]
+    steps = result.steps
+    if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
+        raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError("non-finite dist or entropy at batch 256")
+    check_resident_path(launches, "the batch-256 cycle (rank 0's metrics.jsonl)", want=6)
+    check_resident_path(counts, "the batch-256 cycle (in-process counters)", want=6)
+    sample_mod.main(["--save_dir", run_dir, "--num_samples", "100"])
+    with open(os.path.join(run_dir, "samples.png"), "rb") as f:
+        png = f.read()
+    width, height, depth, color = struct.unpack(">IIBB", png[16:26])
+    side = 10 * 33 - 1  # 10 x 10 tiles of 32 pixels, 1-pixel borders
+    pos, idat = 8, b""
+    while pos < len(png):  # the image data: a filter byte and 3 bytes a pixel per row
+        (length,) = struct.unpack(">I", png[pos:pos + 4])
+        if png[pos + 4:pos + 8] == b"IDAT":
+            idat += png[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    res = dict(launches=launches, wall_s=wall, steps_ms=[r["step_ms"] for r in steps],
+               cycle_ms=sum(r["step_ms"] for r in steps), png_bytes=len(png),
+               png_header=[width, height, depth, color])
+    print(f"DCGAN batch 256, one 5:1 cycle on {card}: " + json.dumps(res), flush=True)
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR" or (
+            width, height, depth, color) != (side, side, 8, 2) or len(
+                zlib.decompress(idat)) != side * (1 + 3 * side):
+        raise AssertionError(f"samples.png is malformed: {res['png_header']}, {len(png)} B")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -513,14 +726,17 @@ def main() -> int:
     del feats_a, feats_b
 
     small = two_batch_costs(unit_features(gen, 128, 64), unit_features(gen, 128, 64))
-    p_k, e_k = sinkhorn_assignment(small, LAM, 200, use_pallas=True)
     p_o, e_o = sinkhorn_f64(small, LAM, 200)
-    d_or = float((p_k.double() - p_o).abs().max())
-    de_or = float((e_k.double() - e_o).abs().max())
-    print(f"kernel path vs float64 Sinkhorn {tuple(small.shape)} lam={LAM}: "
-          f"max|dP| {d_or:.3e}, max|d entropy| {de_or:.3e}", flush=True)
-    if not (d_or <= P_TOL and de_or <= ENT_TOL):
-        raise AssertionError("kernel path disagrees with the float64 Sinkhorn")
+    # kernel 1's path, and the public entry, which takes the resident tier here
+    for label, (p_k, e_k) in (("kernel 1 path", sk.sinkhorn_assignment_kernel(small, LAM, 200)),
+                              ("resident tier", sinkhorn_assignment(small, LAM, 200,
+                                                                    use_pallas=True))):
+        d_or = float((p_k.double() - p_o).abs().max())
+        de_or = float((e_k.double() - e_o).abs().max())
+        print(f"{label} vs float64 Sinkhorn {tuple(small.shape)} lam={LAM}: "
+              f"max|dP| {d_or:.3e}, max|d entropy| {de_or:.3e}", flush=True)
+        if not (d_or <= P_TOL and de_or <= ENT_TOL):
+            raise AssertionError(f"the {label} disagrees with the float64 Sinkhorn")
 
     # ---- 4. the main path, counters zeroed just before ----
     save_dir = os.path.join(REPO, "runs", "chip_smoke")
@@ -634,7 +850,16 @@ def main() -> int:
     # ---- 7. several GPUs ----
     multi = multi_gpu_phase(torch.cuda.device_count())
 
-    # ---- 8. the kernels line ----
+    # ---- 8. the resident kernel vs plain and kernel 1 at its tier's shapes ----
+    torch.cuda.empty_cache()
+    resident = {label: hold_resident(c, label, bw, flops)
+                for label, c in resident_shapes(gen).items()}
+
+    # ---- 9. the toy path: train, resume, sample; 10. the DCGAN at batch 256 ----
+    toy = toy_phase(card)
+    b256 = dcgan_b256_phase(card)
+
+    # ---- 11. the kernels line ----
     kernels = [{
         "name": "sinkhorn_col_potential",
         "route": "cuda",
@@ -682,6 +907,30 @@ def main() -> int:
             "path": sharded[mode],
             "multi_gpu_training": multi.get(mode),
         })
+    own = resident["toy_b512"]  # the shape of the slice's path
+    kernels.append({
+        "name": "sinkhorn_resident",
+        "route": "cuda",
+        "source": "otgan_tpu_torch/csrc/sinkhorn_resident.cu",
+        "replaces": "otgan_tpu/ops/sinkhorn_pallas.py:58",
+        "launches": toy["launches"]["resident"],
+        "launches_from": (f"phase 9: the toy run, 2 epochs of {TOY_EPOCH_BATCHES} steps at batch "
+                          "512 (rank 0's metrics.jsonl); phase 10: "
+                          f"{b256['launches']['resident']} in the DCGAN's 5:1 cycle at batch 256"),
+        "max_abs_err": max(r["max_abs_dP"] for r in resident.values()),
+        "ms": own["ms"],
+        "plain_ms": own["plain_ms"],
+        "bound_ms": own["bound_ms"],
+        "bound_by": own["bound_by"],
+        "library_ms": None,
+        "library_null_reason": "no single PyTorch call runs n Sinkhorn iterations",
+        "shape": own["shape"],
+        "n_iters": ITERS,
+        "cluster": own["cluster"],
+        "held": resident,
+        "toy_path": toy,
+        "dcgan_b256": b256,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

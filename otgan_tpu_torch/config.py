@@ -8,6 +8,8 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 
 Knobs that only steer the TPU runtime (compile caches, host prefetch, the
 fused cycle program, AOT cache) are read and have no effect here.
+:meth:`TrainConfig.model_opts` is the JAX package's: the toy reads the
+default ``crelu`` as ``relu``, and every family takes ``compute_dtype``.
 ``--num_devices`` K > 1 runs under ``torchrun --nproc_per_node K``, and
 ``--matching_layout`` and ``--sharded_matching`` pick its matcher.
 :func:`check_supported` rejects the options whose port comes in a later
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Optional
 
@@ -105,13 +108,30 @@ class TrainConfig:
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in data.items() if k in names})
 
+    @classmethod
+    def for_run(cls, save_dir: str, **overrides) -> "TrainConfig":
+        """The config of the training run in ``save_dir`` (its
+        ``config.json``, else the defaults), with ``overrides`` on top."""
+        path = os.path.join(save_dir, "config.json")
+        cfg = cls.load(path) if os.path.exists(path) else cls()
+        return dataclasses.replace(cfg, save_dir=save_dir, **overrides)
+
+    def model_opts(self) -> dict:
+        """The model family's constructor options. The toy notebook's MLPs
+        are plain relu: the global default ``crelu`` (for the conv models)
+        would double every fan-in, so the toy reads it as ``relu``."""
+        nonlin = self.nonlinearity
+        if self.model == "toy_mlp" and nonlin == "crelu":
+            nonlin = "relu"
+        return {"nonlinearity": nonlin, "compute_dtype": self.compute_dtype}
+
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice of the port
     does not run yet, naming the slice that brings it."""
     later = []
-    if cfg.model != "dcgan":
-        later.append(f"--model {cfg.model} (model-zoo / toy slice)")
+    if cfg.model not in ("dcgan", "toy_mlp"):
+        later.append(f"--model {cfg.model} (model-zoo slice)")
     if cfg.remat or cfg.remat_policy:
         later.append("--remat / --remat_policy (remat slice)")
     if cfg.grad_accum > 1:
@@ -119,9 +139,8 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.multihost:
         later.append("--multihost (multi-host slice)")
     if cfg.checkpoint_backend != "npz":
-        later.append("--checkpoint_backend orbax (checkpoint slice)")
-    if cfg.load_params:
-        later.append("--load_params (checkpoint slice)")
+        later.append("--checkpoint_backend orbax (with torch.distributed.checkpoint, "
+                     "a later checkpoint slice)")
     if cfg.eval_fid:
         later.append("--eval_fid (eval slice)")
     if cfg.matching_precision != "highest":

@@ -8,7 +8,7 @@ layout, so the conversion transposes:
 
 * conv V: HWIO <-> OIHW;
 * dense V: ``(in, out)`` <-> ``(out, in)``;
-* g and b: unchanged.
+* g and b: unchanged; the toy's plain dense layers have no g.
 
 Weight norm is over every axis but the output one on both sides, so the
 effective weights agree. Optimizer moments share their parameter's layout.

@@ -11,8 +11,12 @@ as eager PyTorch on one device:
 The 5:1 schedule (step ``s`` is a critic step when ``s % (n + 1) == 0``) is
 a Python loop in :meth:`Engine.cycle`. Step functions take the latent as an
 argument, so a test can feed the JAX package's draw; without one they draw
-``U(-1, 1)`` from the state's ``torch.Generator``. Matching is float32 with
-TF32 off; model matmuls and convs run in ``cfg.compute_dtype``.
+the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0, 1)^256``) from the
+state's ``torch.Generator``. Matching is float32 with TF32 off; model
+matmuls and convs run in ``cfg.compute_dtype``. The model family (``--model
+dcgan|toy_mlp``) picks the generator, the critic, the latent distribution
+and the transport cost: cosine for the DCGAN, the scaled squared-Euclidean
+cost for the toy (``otgan_tpu/engine.py:77-79``), in every matcher build.
 
 Several GPUs (counterpart of the JAX engine's mesh half): one process per
 GPU under ``torchrun``, each with the whole model. Every rank is handed the
@@ -42,11 +46,15 @@ from torch.func import functional_call
 
 from otgan_tpu_torch.config import TrainConfig, check_supported
 from otgan_tpu_torch.models import get_model
-from otgan_tpu_torch.models.dcgan import sample_latent
 from otgan_tpu_torch.nn.ema import ema_init, ema_update
 from otgan_tpu_torch.nn.layers import data_init, reset_parameters
 from otgan_tpu_torch.nn.optim import make_optimizer
-from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
+from otgan_tpu_torch.ops.costs import (
+    cosine_cost,
+    resolve_precision,
+    scaled_sqeuclidean_cost,
+    true_f32,
+)
 from otgan_tpu_torch.ops.losses import med_discriminator_loss, med_generator_loss
 from otgan_tpu_torch.ops.matching import (
     MatchedFeatures,
@@ -129,6 +137,7 @@ class Engine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.family = get_model(cfg.model)
+        self.cost_fn = scaled_sqeuclidean_cost if cfg.model == "toy_mlp" else cosine_cost
         self.opt_init, opt_update = make_optimizer(cfg.optimizer)
         if cfg.optimizer == "nesterov":
             self.opt_update = functools.partial(opt_update, mom1=cfg.adam_mom1)
@@ -166,7 +175,7 @@ class Engine:
             match,
             lam=cfg.sinkhorn_lambda,
             n_iters=cfg.nr_sinkhorn_iter,
-            cost_fn=cosine_cost,
+            cost_fn=self.cost_fn,
             use_pallas=cfg.use_pallas,
             tol=cfg.sinkhorn_tol,
         )
@@ -197,7 +206,7 @@ class Engine:
             match,
             lam=cfg.sinkhorn_lambda,
             n_iters=cfg.nr_sinkhorn_iter,
-            cost_fn=cosine_cost,
+            cost_fn=self.cost_fn,
             use_pallas=cfg.use_pallas,
             tol=cfg.sinkhorn_tol,
         ))
@@ -304,7 +313,7 @@ class Engine:
             self.group,
             cfg.sinkhorn_lambda,
             cfg.nr_sinkhorn_iter,
-            cost_fn=cosine_cost,
+            cost_fn=self.cost_fn,
             tol=cfg.sinkhorn_tol,
             use_pallas=cfg.use_pallas,
         )
@@ -327,16 +336,22 @@ class Engine:
         return grads
 
     def _build_models(self):
-        opts = dict(nonlinearity=self.cfg.nonlinearity, compute_dtype=self.compute_dtype)
+        opts = dict(self.cfg.model_opts(), compute_dtype=self.compute_dtype)
         return self.family.make_generator(**opts), self.family.make_discriminator(**opts)
+
+    def latents(self, batch: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``batch`` of the family's latents on the device, from ``generator``."""
+        return self.family.sample_latent(batch, generator, self.device)
 
     # -- init (the data-dependent init really runs) --
     def init_state(self, seed: int, x_init) -> Tuple[TrainState, int]:
         """Random V from ``seed``, then g and b from the batch ``x_init``
-        (uint8 or float NHWC) and as many latents. Returns the state and
-        the critic's feature count. Several ranks each run it on the whole
-        batch, then take rank 0's parameters; ``init_spread`` is how far any
-        rank's own init was from them (0.0 when the ranks agreed)."""
+        (uint8 or float NHWC images, or toy points) and as many latents.
+        The toy takes no data-dependent init (``otgan_tpu/engine.py:309``):
+        its plain layers keep their He-scale V and zero b. Returns the state
+        and the critic's feature count. Several ranks each run it on the
+        whole batch, then take rank 0's parameters; ``init_spread`` is how
+        far any rank's own init was from them (0.0 when the ranks agreed)."""
         cpu_rng = torch.Generator().manual_seed(seed)
         gen, disc = self._build_models()
         reset_parameters(disc, cpu_rng)
@@ -344,9 +359,9 @@ class Engine:
         gen.to(self.device)
         disc.to(self.device)
         x = self.ingest(x_init)
-        if self.cfg.data_dependent_init:
+        if self.cfg.data_dependent_init and self.cfg.model != "toy_mlp":
             f = data_init(disc, x)
-            data_init(gen, sample_latent(x.shape[0], cpu_rng).to(self.device))
+            data_init(gen, self.family.sample_latent(x.shape[0], cpu_rng).to(self.device))
         else:
             with torch.no_grad():
                 f = disc(x)
@@ -373,9 +388,10 @@ class Engine:
         return state, int(f.shape[-1])
 
     def ingest(self, x) -> torch.Tensor:
-        """Images to the device in the compute dtype: uint8 ``[0, 255]``
-        crosses as bytes and becomes ``x / 127.5 - 1`` (f32, then rounded
-        once to the compute dtype) on the device; float images are cast."""
+        """A batch to the device in the compute dtype: uint8 ``[0, 255]``
+        images cross as bytes and become ``x / 127.5 - 1`` (f32, then
+        rounded once to the compute dtype) on the device; float images and
+        toy points are cast, as the JAX package casts them at placement."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         x = x.to(self.device, non_blocking=True)
@@ -385,7 +401,7 @@ class Engine:
 
     def _latent(self, state: TrainState, batch: int, z) -> torch.Tensor:
         if z is None:
-            return sample_latent(batch, state.rng, self.device)
+            return self.latents(batch, state.rng)
         if isinstance(z, np.ndarray):
             z = torch.from_numpy(z)
         return z.to(self.device, torch.float32)
@@ -455,10 +471,11 @@ class Engine:
     # -- sampling (train.py:72-75, x_gens / x_gens_ema) --
     @torch.no_grad()
     def sample(self, state: TrainState, z, ema: bool = False) -> torch.Tensor:
-        """Images from latents ``z`` (B, 100), or from ``z`` fresh draws when
-        ``z`` is an int; with ``ema`` the EMA weights generate."""
+        """Samples (images, or toy points) from latents ``z``, or from ``z``
+        fresh draws of the state's generator when ``z`` is an int; with
+        ``ema`` the EMA weights generate."""
         if isinstance(z, int):
-            z = sample_latent(z, state.rng, self.device)
+            z = self.latents(z, state.rng)
         else:
             z = self._latent(state, len(z), z)
         if ema:

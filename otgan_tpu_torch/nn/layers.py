@@ -5,9 +5,13 @@
   the norm taken over every axis except the output one. V is stored in
   PyTorch's layout: ``(out, in)`` for dense, OIHW for conv (the JAX package
   stores ``(in, out)`` and HWIO; ``convert.py`` carries weights across).
+* A plain dense layer (``weight_norm=False``, the toy MLPs) has only
+  ``(V, b)`` and uses V as it is; without data init V is drawn at He scale
+  ``sqrt(2 / fan_in) N(0, 1)`` (the toy notebook's xavier_init).
 * Data-dependent init really runs: on the first forward after
   :func:`data_init` marks a layer, ``g = init_scale / (std(pre) + 1e-10)``
-  and ``b = -mean(pre * g)`` over a real batch (population std).
+  and ``b = -mean(pre * g)`` over a real batch (population std); a plain
+  layer folds that scale into V instead (``utils/nn.py:150-151``).
 * The pre-activation (none/relu/elu/crelu/celu) is applied to the input
   inside the layer; the 'c' variants concatenate ``[x, -x]`` on channels and
   double the fan-in.
@@ -82,16 +86,20 @@ def same_padding(size: int, kernel: int, stride: int):
 
 
 class _WeightNormLayer(nn.Module):
-    """Shared (V, g, b) handling. ``V`` has the output axis first."""
+    """Shared (V, g, b) handling. ``V`` has the output axis first. With
+    ``weight_norm=False`` the layer has no g and V is the weight."""
 
     def __init__(self, v_shape: Sequence[int], init_scale: float,
-                 pre_activation: Optional[str], compute_dtype: torch.dtype):
+                 pre_activation: Optional[str], compute_dtype: torch.dtype,
+                 weight_norm: bool = True):
         super().__init__()
         if pre_activation not in PRE_ACTIVATIONS:
             raise ValueError(f"unsupported pre-activation: {pre_activation!r}")
         self.V = nn.Parameter(torch.empty(tuple(v_shape)))
-        self.g = nn.Parameter(torch.ones(v_shape[0]))
+        if weight_norm:
+            self.g = nn.Parameter(torch.ones(v_shape[0]))
         self.b = nn.Parameter(torch.zeros(v_shape[0]))
+        self.weight_norm = weight_norm
         self.init_scale = init_scale
         self.pre_activation = pre_activation
         self.compute_dtype = compute_dtype
@@ -100,14 +108,19 @@ class _WeightNormLayer(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """``V ~ 0.05 N(0, 1)`` (reference initializer, ``utils/nn.py:124``),
-        ``g = 1``, ``b = 0``; drawn on the CPU so every device gets the same
-        numbers from one seed."""
-        v = 0.05 * torch.randn(self.V.shape, generator=generator)
-        self.V.copy_(v)
-        self.g.fill_(1.0)
+        ``g = 1``, ``b = 0``; a plain layer draws V at He scale
+        ``sqrt(2 / fan_in) N(0, 1)`` (``otgan_tpu/nn/layers.py:174-180``).
+        Drawn on the CPU so every device gets the same numbers from one
+        seed."""
+        scale = 0.05 if self.weight_norm else (2.0 / self.V[0].numel()) ** 0.5
+        self.V.copy_(scale * torch.randn(self.V.shape, generator=generator))
+        if self.weight_norm:
+            self.g.fill_(1.0)
         self.b.fill_(0.0)
 
     def _direction(self) -> torch.Tensor:
+        if not self.weight_norm:
+            return self.V
         dims = tuple(range(1, self.V.dim()))
         return self.V / torch.sqrt(torch.sum(self.V.square(), dim=dims, keepdim=True))
 
@@ -118,20 +131,25 @@ class _WeightNormLayer(nn.Module):
         xin = self._input(x)
         if self.init_pending:
             return self._data_dependent_init(xin)
-        shape = (-1,) + (1,) * (self.V.dim() - 1)
-        w = self._direction() * self.g.reshape(shape)
+        w = self._direction()
+        if self.weight_norm:
+            w = w * self.g.reshape((-1,) + (1,) * (self.V.dim() - 1))
         return self._apply_weight(xin, w) + self.b
 
     @torch.no_grad()
     def _data_dependent_init(self, xin: torch.Tensor) -> torch.Tensor:
-        """``utils/nn.py:108-162`` with the init pass actually executed."""
+        """``utils/nn.py:108-162`` with the init pass actually executed; a
+        plain layer folds the scale into V (``utils/nn.py:150-151``)."""
         pre = self._apply_weight(xin, self._direction())
         dims = tuple(range(pre.dim() - 1))
         std = torch.std(pre, dim=dims, correction=0)
         g = self.init_scale / (std + 1e-10)
         out = pre * g
         b = -torch.mean(out, dim=dims)
-        self.g.copy_(g)
+        if self.weight_norm:
+            self.g.copy_(g)
+        else:
+            self.V.mul_(g.reshape((-1,) + (1,) * (self.V.dim() - 1)))
         self.b.copy_(b)
         self.init_pending = False
         return out + b
@@ -142,13 +160,16 @@ class _WeightNormLayer(nn.Module):
 
 class Dense(_WeightNormLayer):
     """Weight-normalised dense layer (reference ``dense``,
-    ``utils/nn.py:314-325``); V is ``(num_units, fan_in)``."""
+    ``utils/nn.py:314-325``); V is ``(num_units, fan_in)``. ``weight_norm=
+    False`` is the JAX package's ``dense(weight_norm=False, use_g=False)``:
+    V and b only."""
 
     def __init__(self, in_features: int, num_units: int,
                  pre_activation: Optional[str] = "celu", init_scale: float = 1.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, weight_norm: bool = True):
         fan_in = in_features * fan_in_factor(pre_activation)
-        super().__init__((num_units, fan_in), init_scale, pre_activation, compute_dtype)
+        super().__init__((num_units, fan_in), init_scale, pre_activation, compute_dtype,
+                         weight_norm)
 
     def _apply_weight(self, xin, w):
         cd = self.compute_dtype

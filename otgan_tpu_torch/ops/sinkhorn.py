@@ -11,9 +11,16 @@ which is algebraically the reference's full-matrix recursion
 softmax of ``log_a`` and the entropy its mean row Shannon entropy. All of it
 is float32.
 
-``sinkhorn_assignment(use_pallas=True)`` runs the potential loop in the
-hand-written CUDA kernel (``ops/sinkhorn_cuda.py``); the name of the flag is
-kept so that a ``config.json`` reads in both packages.
+``sinkhorn_assignment(use_pallas=True)`` runs the loop in a hand-written
+CUDA kernel, in one of two tiers: every matrix the shared-memory kernel
+holds (``resident_supported``: at most 768^2 cells) goes whole to it
+(``ops/sinkhorn_resident_cuda.py``, one launch per match, softmax and
+entropy included), larger ones to the column-potential kernel
+(``ops/sinkhorn_cuda.py``, two launches per iteration). The resident kernel
+was the faster of the two at every size it holds on an H100
+(``measure_resident.py``; PERF.md), so the tier's boundary is its ceiling.
+The name of the flag is kept so that a ``config.json`` reads in both
+packages.
 """
 
 from __future__ import annotations
@@ -90,8 +97,8 @@ def sinkhorn_assignment(
 
     The plan is not differentiated: the reference seeds backprop at the
     feature tensors, so the cost is detached here. ``tol > 0`` takes the
-    early-exit loop (a dynamic trip count the fixed-count kernel does not
-    run); otherwise ``use_pallas`` selects the CUDA kernel.
+    early-exit loop (a dynamic trip count the fixed-count kernels do not
+    run); otherwise ``use_pallas`` selects a CUDA kernel by the matrix size.
     """
     cost = cost.detach()
     if tol > 0.0:
@@ -99,7 +106,13 @@ def sinkhorn_assignment(
         return assignment_and_entropy(log_a)
     if use_pallas:
         from otgan_tpu_torch.ops.sinkhorn_cuda import sinkhorn_assignment_kernel
+        from otgan_tpu_torch.ops.sinkhorn_resident_cuda import (
+            resident_supported,
+            sinkhorn_resident,
+        )
 
+        if resident_supported(*cost.shape[-2:]):
+            return sinkhorn_resident(cost, lam, n_iters)
         return sinkhorn_assignment_kernel(cost, lam, n_iters)
     log_a, _, _ = sinkhorn_log(-lam * cost.float(), n_iters)
     return assignment_and_entropy(log_a)

@@ -2,20 +2,32 @@
 
 ``python -m otgan_tpu_torch.train [--device cpu] --flags`` takes every flag
 of the JAX package's trainer (``config.py``). It initialises the models
-(data-dependent init on the first batch), then runs epochs of shuffled
-batches under the reference's G:D schedule (``train.py:196-231``), logging
-JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean generator
-and critic distances and entropy, and with ``--log_every_steps N`` every
-N-th step's dist, entropy and wall time, and per epoch the launches of
-each Sinkhorn kernel and of its plain version since the first step
-(``launches``, this rank's). Checkpoints, sample grids,
-Inception/FID eval and host prefetch come in later slices.
+(data-dependent init on the first batch; none for the toy), then runs
+epochs under the reference's G:D schedule (``train.py:196-231``): shuffled
+CIFAR-10 (or synthetic) batches, or for ``--model toy_mlp`` fresh
+8-Gaussians batches, 78 a epoch (``OTGAN_TOY_EPOCH_BATCHES`` overrides).
+It logs JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean
+generator and critic distances and entropy, and with ``--log_every_steps
+N`` every N-th step's dist, entropy and wall time, and per epoch the
+launches of each Sinkhorn kernel and of its plain version since the first
+step (``launches``, this rank's).
+
+After each epoch it writes 100 samples of the generator and of its EMA
+(``sample<e>.png`` and ``ema_sample<e>.png`` grids for images,
+``sample<e>.npy`` and ``ema_sample<e>.npy`` for toy points), drawn from
+latents seeded by the epoch. Every ``--save_every_epochs`` epochs (not the
+first epoch of a run) it writes the full train state,
+``otgan_state-<epoch>.npz`` (``utils/checkpoint.py``; retention, slot dtype
+and background writes from the config). ``--load_params`` resumes from
+``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
+after it; the data generator starts afresh from ``--seed``, as in the JAX
+trainer. Inception/FID eval and host prefetch come in later slices.
 
 On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
 --num_devices K ...``, one process per GPU (NCCL; gloo with ``--device
 cpu``). Every rank reads the same global batches; only rank 0 writes
-``config.json`` and ``metrics.jsonl`` and prints. Every rank ends in a
-barrier, then leaves the process group.
+``config.json``, ``metrics.jsonl``, samples and checkpoints, and prints.
+Every rank ends in a barrier, then leaves the process group.
 """
 
 from __future__ import annotations
@@ -31,10 +43,21 @@ import torch.distributed as dist
 
 from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namespace
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
+from otgan_tpu_torch.data.toy import sample_8gaussians
 from otgan_tpu_torch.engine import Engine, TrainState
-from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_step_cuda
+from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
 from otgan_tpu_torch.parallel.mesh import init_from_env
+from otgan_tpu_torch.utils.checkpoint import (
+    checkpoint_step,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_pending_saves,
+)
 from otgan_tpu_torch.utils.metrics import MetricLogger
+from otgan_tpu_torch.utils.plotting import img_tile, save_tile_img
+
+SAMPLES_PER_EPOCH = 100
 
 
 class TrainResult(NamedTuple):
@@ -51,10 +74,29 @@ def make_loader(cfg: TrainConfig, rng: np.random.Generator) -> DataLoader:
                       rng=rng, out_dtype=out_dtype)
 
 
+def _toy_epoch(rng: np.random.Generator, batch_size: int, n_batches: int = 78):
+    """One notebook "epoch" of fresh 8-Gaussians batches (~40000 / 512)."""
+    for _ in range(n_batches):
+        yield sample_8gaussians(rng, batch_size)
+
+
+def save_samples(engine: Engine, state: TrainState, path: str, seed: int, ema: bool) -> None:
+    """100 samples from latents seeded by ``seed``: a PNG grid at ``path``
+    for images, an ``.npy`` beside it for toy points."""
+    z = engine.latents(SAMPLES_PER_EPOCH, torch.Generator(device=engine.device).manual_seed(seed))
+    x = engine.sample(state, z, ema=ema).float().cpu().numpy()
+    if x.ndim == 4:
+        save_tile_img(img_tile(x, aspect_ratio=1.0, border_color=1.0, stretch=False), path)
+    else:
+        np.save(path.replace(".png", ".npy"), x)
+
+
 def kernel_launches() -> dict:
     """The Sinkhorn kernels' launch counters, and their plain versions'."""
     return {"col_potential": sinkhorn_cuda.launches["kernel"],
             "col_potential_plain": sinkhorn_cuda.launches["plain"],
+            "resident": sinkhorn_resident_cuda.launches["kernel"],
+            "resident_plain": sinkhorn_resident_cuda.launches["plain"],
             **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()}}
 
 
@@ -78,14 +120,18 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         os.makedirs(cfg.save_dir, exist_ok=True)
         cfg.save(os.path.join(cfg.save_dir, "config.json"))
     data_rng = np.random.default_rng(cfg.seed)
-    loader = make_loader(cfg, data_rng)
-    if loader.num_batches == 0:
-        raise ValueError(
-            f"{loader.data.shape[0]} examples make no batch of {cfg.batch_size}"
-        )
-    state, num_features = engine.init_state(
-        cfg.seed, loader.init_batch(cfg.init_batch_size or None)
-    )
+    is_toy = cfg.model == "toy_mlp"
+    if is_toy:
+        x_init = sample_8gaussians(data_rng, cfg.init_batch_size or cfg.batch_size)
+        n_toy = int(os.environ.get("OTGAN_TOY_EPOCH_BATCHES", "78"))
+    else:
+        loader = make_loader(cfg, data_rng)
+        if loader.num_batches == 0:
+            raise ValueError(
+                f"{loader.data.shape[0]} examples make no batch of {cfg.batch_size}"
+            )
+        x_init = loader.init_batch(cfg.init_batch_size or None)
+    state, num_features = engine.init_state(cfg.seed, x_init)
     if rank0:
         print(
             f"device: {engine.device} ({engine.world} rank(s)); global batch: "
@@ -93,15 +139,27 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             f"model has a hidden representation with {num_features} features",
             flush=True,
         )
+    start_epoch = 0
+    if cfg.load_params:
+        path = cfg.model_name or latest_checkpoint(cfg.save_dir)
+        if path:
+            restore_checkpoint(path, state)
+            start_epoch = checkpoint_step(path) + 1
+            if rank0:
+                print(f"restored {path}; resuming at epoch {start_epoch}", flush=True)
+        elif rank0:
+            print("no checkpoint found; training from scratch", flush=True)
     steps: List[dict] = []
     stride = cfg.log_every_steps
     with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger:
         logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread)
         launches0 = kernel_launches()
-        for epoch in range(cfg.max_epochs):
+        start_time = time.time()
+        for epoch in range(start_epoch, cfg.max_epochs):
             begin = time.time()
             dist_gen, dist_disc, entropies = [], [], []
-            for x in loader.epoch():
+            batches = _toy_epoch(data_rng, cfg.batch_size, n_toy) if is_toy else loader.epoch()
+            for x in batches:
                 t0 = time.perf_counter()
                 is_disc = engine.is_disc_step(state.step)
                 step_fn = engine.disc_step if is_disc else engine.gen_step
@@ -123,6 +181,22 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
             logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
                        entropy=float(torch.stack(entropies).mean()), launches=launches, **vals)
+            if not rank0:
+                continue
+            # per-epoch samples, raw and EMA (train.py:233-243)
+            for prefix, ema in (("sample", False), ("ema_sample", True)):
+                save_samples(engine, state, os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
+                             seed=epoch, ema=ema)
+            # periodic checkpoint (train.py:275-281)
+            if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
+                path = save_checkpoint(
+                    cfg.save_dir, state, epoch, slot_dtype=cfg.checkpoint_slot_dtype,
+                    async_write=cfg.async_checkpoint, max_to_keep=cfg.max_checkpoints_to_keep,
+                    keep_every_hours=cfg.keep_checkpoint_every_n_hours)
+                print(f"saved {path}; elapsed hours {(time.time() - start_time) / 3600:.3f}; "
+                      f"total updates {state.step}", flush=True)
+    # every checkpoint reported as saved is on disk before train() returns
+    wait_for_pending_saves()
     return TrainResult(state, steps)
 
 

@@ -1,6 +1,6 @@
 """The hand-written CUDA Sinkhorn kernels on a card (the column-potential
-loop and the row-sharded matcher's local step), against their plain
-PyTorch versions on the same logits. Every test here needs an NVIDIA GPU and
+loop, the row-sharded matcher's local step and the resident whole-loop
+kernel), against their plain PyTorch versions on the same logits. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_step_cuda
+from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
 from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy, sinkhorn_assignment
 
 
@@ -69,13 +69,22 @@ def test_zero_iterations_and_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_public_entry_launches_kernel_not_plain(cuda_device):
+    """The resident tier up to 768^2 cells, kernel 1 above; no plain
+    version on the card."""
     sinkhorn_cuda.reset_launch_counts()
+    sinkhorn_resident_cuda.reset_launch_counts()
     p, e = sinkhorn_assignment(_costs(6, 64, 64, 32).to(cuda_device), 500.0, 50,
                                use_pallas=True)
-    assert sinkhorn_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_resident_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
     assert p.shape == (6, 64, 64) and e.shape == (6,)
     torch.testing.assert_close(p.sum(-1), torch.ones(6, 64, device=cuda_device),
                                atol=1e-5, rtol=0)
+    p, e = sinkhorn_assignment(_costs(1, 800, 800, 32).to(cuda_device)[0], 500.0, 50,
+                               use_pallas=True)
+    assert sinkhorn_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_resident_cuda.launches == {"kernel": 1, "plain": 0}
+    assert p.shape == (800, 800) and e.shape == ()
 
 
 @pytest.mark.cuda
@@ -132,3 +141,66 @@ def test_local_step_bad_inputs_raise(cuda_device):
         sinkhorn_step_cuda.make_local_step(x, mode="xla")
     with pytest.raises(ValueError, match="stream tier"):
         sinkhorn_step_cuda.make_local_step(x, mode="fused", n_ctas=2)
+
+
+def _resident_costs(name, device):
+    """chip_smoke.py's resident shapes from numpy costs: the DCGAN at batch
+    256, the toy at batch 512, the 768^2 point, a ragged one, and the
+    single-batch +999 diagonal."""
+    shapes = {"dcgan_b256": (6, 128, 128), "toy_b512": (6, 256, 256), "bench_768": (1, 768, 768),
+              "ragged": (6, 100, 228), "single_b128": (3, 128, 128)}
+    b, n, m = shapes[name]
+    c = _costs(b, n, m, 64)
+    if name == "single_b128":
+        c[:2] += 999.0 * torch.eye(n)
+    return c.to(device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dcgan_b256", "toy_b512", "bench_768", "ragged", "single_b128"])
+def test_resident_kernel_matches_plain(cuda_device, name):
+    """lam = 500, 500 iterations: P within 1e-5 and entropy within 1e-4 of
+    the plain version and of kernel 1's path; the +999 diagonal stays 0."""
+    costs = _resident_costs(name, cuda_device)
+    before = dict(sinkhorn_resident_cuda.launches)
+    p, e = sinkhorn_resident_cuda.sinkhorn_resident(costs, 500.0, 500)
+    torch.cuda.synchronize()
+    assert sinkhorn_resident_cuda.launches == {"kernel": before["kernel"] + 1,
+                                               "plain": before["plain"]}
+    p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 500.0, 500)
+    p_k1, e_k1 = sinkhorn_cuda.sinkhorn_assignment_kernel(costs, 500.0, 500)
+    assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(e).all())
+    for want_p, want_e in ((p_ref, e_ref), (p_k1, e_k1)):
+        torch.testing.assert_close(p, want_p, atol=1e-5, rtol=0)
+        torch.testing.assert_close(e, want_e, atol=1e-4, rtol=0)
+    if name == "single_b128":
+        assert float(torch.diagonal(p[:2], dim1=1, dim2=2).max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 16])
+def test_resident_every_cluster_size(cuda_device, cluster):
+    """Any cluster size gives the same assignment: bands of 1 to 100 rows,
+    blocks that hold no rows (16 blocks for 100 rows of 7) included."""
+    costs = _costs(2, 100, 130, 32).to(cuda_device)
+    p, e = sinkhorn_resident_cuda.sinkhorn_resident_cuda(costs, 50.0, 200, cluster_size=cluster)
+    p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 50.0, 200)
+    torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+    p0, e0 = sinkhorn_resident_cuda.sinkhorn_resident_cuda(costs, 50.0, 0, cluster_size=cluster)
+    torch.testing.assert_close(p0, torch.softmax(-50.0 * costs, dim=-1), atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_resident_bad_inputs_raise(cuda_device):
+    x = torch.rand(2, 20, 30, device=cuda_device)
+    with pytest.raises(ValueError):
+        sinkhorn_resident_cuda.sinkhorn_resident_cuda(x.transpose(1, 2), 50.0, 3)
+    with pytest.raises(ValueError):
+        sinkhorn_resident_cuda.sinkhorn_resident_cuda(x.double(), 50.0, 3)
+    with pytest.raises(ValueError, match="cannot hold"):
+        sinkhorn_resident_cuda.sinkhorn_resident_cuda(torch.rand(1, 800, 800, device=cuda_device),
+                                                      50.0, 3)
+    with pytest.raises(ValueError, match="cannot hold"):
+        sinkhorn_resident_cuda.sinkhorn_resident_cuda(
+            torch.rand(1, 768, 768, device=cuda_device), 50.0, 3, cluster_size=4)

@@ -76,8 +76,8 @@ def test_latents_and_registry():
     z = dcgan.sample_latent(64, torch.Generator().manual_seed(0))
     assert z.shape == (64, 100) and float(z.min()) >= -1 and float(z.max()) <= 1
     assert get_model("dcgan") is dcgan
-    for name in ("densenet", "toy_mlp"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_model(name)
+    assert get_model("toy_mlp").LATENT_DIM == 256
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_model("densenet")
     with pytest.raises(ValueError):
         get_model("resnet")

@@ -267,7 +267,8 @@ def test_num_devices_must_match_ranks():
 def _torchrun_two_ranks(tmp_path, *flags):
     """``torchrun --nproc_per_node 2 -m otgan_tpu_torch.train --device cpu``:
     one 1:1 cycle of full-width DCGAN at batch 4, 5 Sinkhorn iterations; the
-    records of ``metrics.jsonl`` after checking that only rank 0 wrote."""
+    records of ``metrics.jsonl`` after checking that only rank 0 wrote (its
+    config, metrics and the two epochs' sample grids)."""
     out_dir = tmp_path / "run"
     cmd = [
         sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
@@ -281,7 +282,9 @@ def _torchrun_two_ranks(tmp_path, *flags):
     out = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert sorted(os.listdir(out_dir)) == ["config.json", "metrics.jsonl"]
+    assert sorted(os.listdir(out_dir)) == [
+        "config.json", "ema_sample0.png", "ema_sample1.png", "metrics.jsonl", "sample0.png",
+        "sample1.png"]
     assert out.stdout.count("model has a hidden representation") == 1
     recs = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in recs if "step_ms" in r]
@@ -292,7 +295,9 @@ def _torchrun_two_ranks(tmp_path, *flags):
 
 
 def test_torchrun_cli_two_ranks(tmp_path):
-    """Layout auto picks matrix-parallel: kernel 1's path, no local step."""
+    """Layout auto picks matrix-parallel: the single-device Sinkhorn path
+    on whole 2 x 2 matrices, its resident tier (plain on the CPU), no local
+    step."""
     recs = _torchrun_two_ranks(tmp_path)
     # auto: 4 x 4 x 32768 floats of accumulator fit the 4 GB budget
     assert recs[0]["matcher"] == (
@@ -300,7 +305,8 @@ def test_torchrun_cli_two_ranks(tmp_path):
         "mesh) [auto: estimated 0.00 GB matrix-parallel residency vs 4.0 GB budget "
         "-> matrices]")
     launches = [r["launches"] for r in recs if "epoch" in r][-1]
-    assert launches["col_potential_plain"] >= 2 and launches["col_potential"] == 0
+    assert launches["resident_plain"] >= 2 and launches["resident"] == 0
+    assert launches["col_potential_plain"] == launches["col_potential"] == 0
     assert {k: n for k, n in launches.items() if k.startswith("local_step")} == {
         "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 0}
 
@@ -312,6 +318,6 @@ def test_torchrun_cli_two_ranks_rows(tmp_path):
     assert recs[0]["matcher"] == (
         "row-sharded (two-batch, whole local halves on the 2-device mesh)")
     assert [r["launches"] for r in recs if "epoch" in r] == [
-        {"col_potential": 0, "col_potential_plain": 0, "local_step_fused": 0,
-         "local_step_stream": 0, "local_step_plain": 5 * steps}
+        {"col_potential": 0, "col_potential_plain": 0, "resident": 0, "resident_plain": 0,
+         "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 5 * steps}
         for steps in (1, 2)]
