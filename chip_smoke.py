@@ -5,17 +5,25 @@ Run from the root of a checkout, it
 
 1. prints the card's ``nvidia-smi`` name and power limit;
 2. builds every CUDA kernel from ``otgan_tpu_torch/csrc/``;
-3. holds the column-potential kernel against its plain PyTorch version on
-   the card, at the main path's shapes (6 x 2500^2, lam = 500, 500
-   iterations) and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5 and
-   |d entropy| <= 1e-4; then kernel 1's path, and the public entry (which
-   takes the resident tier at that size), against a float64 Sinkhorn on a
-   small input;
+3. holds the column-potential kernel (kernel 1) against its plain PyTorch
+   version on the card, at the main path's shapes (6 x 2500^2, lam = 500,
+   500 iterations) and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5
+   and |d entropy| <= 1e-4; then kernel 1's path, the public entry (which
+   takes the resident tier at that size) and the grid kernel against a
+   float64 Sinkhorn on a small input;
+3b. holds the grid kernel (one launch per match, the matrix in the shared
+   memory of the whole card) against its plain version and against kernel
+   1's path at lam = 500, 500 iterations: the main path's 6 x 2500^2, a
+   ragged 6 x 2000 x 2600, the single-batch 3 x 2500^2 with the +999
+   diagonal (diag(P) < 1e-6), the largest square its plan holds on this
+   card, and 6 x 1000^2 on a forced 33 blocks a matrix (P within 1e-5,
+   entropy within 1e-4); then times it at 6 x 2500^2 beside kernel 1's
+   path, its plain version and its bound;
 4. drives the single-GPU path, ``otgan_tpu_torch.train --preset train_py
    --synthetic_data --synthetic_size 10000`` for one 5:1 cycle (6 steps of
    global batch 5000, bf16 model compute), with every launch counter set
-   to 0 just before and read just after: each kernel of the path must have
-   launched and no plain version may have run;
+   to 0 just before and read just after: the grid kernel must have
+   launched once a step and nothing else, no plain version;
 5. holds the row-sharded matcher's two local-step kernels (fused and
    stream tiers) against their plain version, at the row blocks one rank
    holds in a multi-GPU run: (6, 313, 2500) (batch 5000 on 8 GPUs), (6,
@@ -30,7 +38,8 @@ Run from the root of a checkout, it
    batch 2000 (block (6, 1000, 1000), fused tier) and batch 8000 (block
    (6, 4000, 4000), stream tier), counters zeroed just before and read just
    after, against the single-device matcher (matched features and entropy
-   within 1e-4);
+   within 1e-4), whose own launches are read too: the grid tier at batch
+   2000, kernel 1 at batch 8000 (6 x 4000^2, above the grid tier);
 7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
    are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
    single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
@@ -60,8 +69,9 @@ Run from the root of a checkout, it
    header and size are checked;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
-   plain version, its time, the plain version's time and the bound for the
-   same work on this card;
+   plain version, its time, the plain version's time, the bound for the
+   same work on this card and, as ``sfu_floor_ms``, its expf alone at the
+   special-function units' peak;
 12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
@@ -86,9 +96,13 @@ P_TOL, ENT_TOL = 1e-5, 1e-4
 # peak rates of the H100 parts (NVIDIA data sheets): memory bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12), "H100": (3.35e12, 67e12)}
-# float32 operations per matrix element per iteration in the kernel: row
-# step add, max, subtract, exp, sum; column step the same five
-OPS_PER_CELL_ITER = 10
+# float32 operations per matrix element per iteration in the kernels: row
+# step add, max, subtract, sum; column step the same four. Beside them one
+# expf per element and step, on the special-function units (MUFU.EX2, 16 a
+# clock per SM on sm_90), counted against that rate (sfu_rate)
+OPS_PER_CELL_ITER = 8
+EXPS_PER_CELL_ITER = 2
+MUFU_PER_SM_CLOCK = 16
 TOY_EPOCH_BATCHES = 8  # batches of the toy run's short epochs
 
 
@@ -105,6 +119,18 @@ def peaks(name: str):
         if key in name:
             return key, rates
     raise RuntimeError(f"no peak rates known for {name!r}")
+
+
+def sfu_rate() -> float:
+    """expf a second at the card's peak: SMs x 16 MUFU.EX2 a clock x the
+    maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * MUFU_PER_SM_CLOCK * mhz * 1e6
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -194,7 +220,7 @@ def resident_shapes(gen) -> dict:
     }
 
 
-def hold_resident(costs, label: str, bw: float, flops: float) -> dict:
+def hold_resident(costs, label: str, bw: float, flops: float, exp_rate: float) -> dict:
     """The resident kernel against its plain version and against kernel 1's
     path on ``costs`` (b, N, M), at LAM and ITERS; raises past P_TOL and
     ENT_TOL. Then the three times and the kernel's bound."""
@@ -224,17 +250,78 @@ def hold_resident(costs, label: str, bw: float, flops: float) -> dict:
             and max(res["max_abs_dentropy"], res["max_abs_dentropy_vs_kernel1"]) <= ENT_TOL
             and res.get("max_diag_P", 0.0) < 1e-6):
         raise AssertionError(f"the resident kernel disagrees at {label}")
-    # C read once, P written once; OPS_PER_CELL_ITER per cell per iteration
-    bound_ms, bound_by = bound(4 * (2 * b * n * m + b), OPS_PER_CELL_ITER * b * n * m * ITERS,
-                               bw, flops)
     res.update(
         ms=cuda_ms(lambda: rc.sinkhorn_resident_cuda(costs, LAM, ITERS), reps=20),
         kernel1_ms=cuda_ms(lambda: sk.sinkhorn_assignment_kernel(costs, LAM, ITERS), reps=5),
         plain_ms=cuda_ms(lambda: rc.sinkhorn_resident_plain(costs, LAM, ITERS), reps=2),
-        bound_ms=bound_ms, bound_by=bound_by)
+        **match_bound(b, n, m, bw, flops, exp_rate))
     print(f"resident tier at {label} {tuple(costs.shape)}: kernel {res['ms']:.4f} ms, kernel 1 "
           f"{res['kernel1_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} (expf alone "
+          f"{res['sfu_floor_ms']:.4f} ms)", flush=True)
+    return res
+
+
+def grid_shapes(gen, main_costs) -> dict:
+    """The grid tier's costs (lam 500, 500 iterations): the main path's 6 x
+    2500^2 two-batch costs, a ragged 6 x 2000 x 2600, the single-batch 3 x
+    2500^2 with the +999 self-match diagonal (``match_single_batch``'s
+    costs), the largest square ``grid_plan`` holds on this card, and 6 x
+    1000^2 on a forced 33 blocks a matrix (bands of 31 rows, four matrices
+    at once), from d 32768 unit features."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
+    from otgan_tpu_torch.ops.costs import cosine_cost
+    from otgan_tpu_torch.ops.matching import two_batch_costs
+
+    sms, smem = gc.card_limits(torch.device("cuda"))
+    top = max(n for n in range(2000, 4000) if gc.grid_plan(n, n, sms, smem))
+    fa, fb = unit_features(gen, 2500, 32768), unit_features(gen, 2500, 32768)
+    eye = 999.0 * torch.eye(2500, device="cuda")
+    return {
+        "main_6x2500": (main_costs, None),
+        "ragged_6x2000x2600": (torch.stack([
+            cosine_cost(unit_features(gen, 2000, 32768), unit_features(gen, 2600, 32768))
+            for _ in range(6)]), None),
+        "single_3x2500": (torch.stack([cosine_cost(fa, fa) + eye, cosine_cost(fb, fb) + eye,
+                                       cosine_cost(fa, fb)]), None),
+        f"ceiling_1x{top}": (cosine_cost(unit_features(gen, top, 32768),
+                                         unit_features(gen, top, 32768))[None], None),
+        "blocks33_6x1000": (two_batch_costs(unit_features(gen, 2000, 32768),
+                                            unit_features(gen, 2000, 32768)), 33),
+    }
+
+
+def hold_grid(costs, label: str, blocks=None) -> dict:
+    """The grid kernel against its plain version and against kernel 1's
+    path on ``costs`` (b, N, M), at LAM and ITERS, on ``blocks`` blocks a
+    matrix (None: the plan's); raises past P_TOL and ENT_TOL, and where the
+    label says ``single``, unless diag(P) < 1e-6 on the +999 matrices."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+    from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
+
+    b, n, m = costs.shape
+    sms, smem = gc.card_limits(costs.device)
+    p, e = gc.sinkhorn_grid_cuda(costs, LAM, ITERS, blocks=blocks)
+    p_ref, e_ref = gc.sinkhorn_grid_plain(costs, LAM, ITERS)
+    res = {"shape": [b, n, m], "plan": list(gc.grid_plan(n, m, sms, smem, blocks, batch=b)),
+           "max_abs_dP": float((p - p_ref).abs().max()),
+           "max_abs_dentropy": float((e - e_ref).abs().max())}
+    del p_ref, e_ref
+    res["matrices_at_once"] = gc.grid_groups(res["plan"][0], b, sms)
+    p_k1, e_k1 = sk.sinkhorn_assignment_kernel(costs, LAM, ITERS)
+    res.update(max_abs_dP_vs_kernel1=float((p - p_k1).abs().max()),
+               max_abs_dentropy_vs_kernel1=float((e - e_k1).abs().max()),
+               finite=bool(torch.isfinite(p).all() and torch.isfinite(e).all()))
+    if "single" in label:
+        res["max_diag_P"] = float(torch.diagonal(p[:2], dim1=1, dim2=2).max())
+    print(f"grid kernel vs plain and kernel 1, {label} {tuple(costs.shape)} lam={LAM} "
+          f"iters={ITERS}: " + json.dumps(res), flush=True)
+    if not (res["finite"] and max(res["max_abs_dP"], res["max_abs_dP_vs_kernel1"]) <= P_TOL
+            and max(res["max_abs_dentropy"], res["max_abs_dentropy_vs_kernel1"]) <= ENT_TOL
+            and res.get("max_diag_P", 0.0) < 1e-6):
+        raise AssertionError(f"the grid kernel disagrees at {label}")
     return res
 
 
@@ -248,10 +335,24 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def bound(bytes_moved: float, ops: float, bw: float, flops: float):
-    """(least ms for the work on this card, what bounds it)."""
-    b_ms, o_ms = bytes_moved / bw * 1e3, ops / flops * 1e3
-    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+def loop_bound(bytes_moved: float, cell_iters: float, bw: float, flops: float,
+               exp_rate: float) -> dict:
+    """The least time of Sinkhorn work on this card: ``bytes_moved`` over
+    the memory rate, or the work of ``cell_iters`` matrix cells times
+    iterations, the larger. That work is OPS_PER_CELL_ITER float32
+    operations over their peak and EXPS_PER_CELL_ITER expf over the
+    special-function units' peak; ``sfu_floor_ms`` is the expf alone."""
+    b_ms = bytes_moved / bw * 1e3
+    sfu_ms = EXPS_PER_CELL_ITER * cell_iters / exp_rate * 1e3
+    o_ms = max(OPS_PER_CELL_ITER * cell_iters / flops * 1e3, sfu_ms)
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "sfu_floor_ms": sfu_ms}
+
+
+def match_bound(b: int, n: int, m: int, bw: float, flops: float, exp_rate: float) -> dict:
+    """Bound of a whole-loop match on (b, n, m) costs at ITERS: C read once,
+    P and the entropies written once."""
+    return loop_bound(4 * (2 * b * n * m + b), b * n * m * ITERS, bw, flops, exp_rate)
 
 
 def drive_blocks(x, n_blocks: int, iters: int, mode=None, n_ctas=None):
@@ -343,7 +444,7 @@ def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
     return out
 
 
-def time_local_step(blk, mode: str, bw: float, flops: float) -> dict:
+def time_local_step(blk, mode: str, bw: float, flops: float, exp_rate: float) -> dict:
     """One step, ITERS steps with the v update between, and the plain step,
     at the rank's block ``blk``; the bounds of a step and of ITERS steps."""
     import torch
@@ -361,17 +462,14 @@ def time_local_step(blk, mode: str, bw: float, flops: float) -> dict:
             v = -(m_loc + torch.log(s_loc))
 
     step_bytes = 4 * (b * n * m + 3 * b * m)
-    step_ops = OPS_PER_CELL_ITER * b * n * m
-    bound_ms, bound_by = bound(step_bytes, step_ops, bw, flops)
-    bound_iters_ms, bound_iters_by = bound(step_bytes, step_ops * ITERS, bw, flops)
+    over_iters = loop_bound(step_bytes, b * n * m * ITERS, bw, flops, exp_rate)
     return {
         "ms": cuda_ms(lambda: step(v0), reps=50),
         "plain_ms": cuda_ms(lambda: plain(v0), reps=10),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **loop_bound(step_bytes, b * n * m, bw, flops, exp_rate),
         "ms_per_500_steps": cuda_ms(loop, reps=3),
-        "bound_ms_per_500_steps": bound_iters_ms,
-        "bound_by_per_500_steps": bound_iters_by,
+        "bound_ms_per_500_steps": over_iters["bound_ms"],
+        "bound_by_per_500_steps": over_iters["bound_by"],
         "shape": [b, n, m],
     }
 
@@ -537,9 +635,14 @@ def multi_gpu_phase(n_cards: int) -> dict:
 
 
 def reset_all_counts() -> None:
-    from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
+    from otgan_tpu_torch.ops import (
+        sinkhorn_cuda,
+        sinkhorn_grid_cuda,
+        sinkhorn_resident_cuda,
+        sinkhorn_step_cuda,
+    )
 
-    for mod in (sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
         mod.reset_launch_counts()
 
 
@@ -548,13 +651,13 @@ def epoch_records(run_dir: str) -> list:
         return [r for r in map(json.loads, f) if "epoch" in r]
 
 
-def check_resident_path(launches: dict, what: str, want=None) -> None:
-    """The run launched the resident kernel (``want`` times, when given)
-    and nothing else: no kernel 1, no local step, no plain version."""
-    others = {k: n for k, n in launches.items() if k != "resident"}
-    if launches["resident"] < 1 or (want is not None and launches["resident"] != want) or any(
+def check_tier_path(launches: dict, tier: str, what: str, want=None) -> None:
+    """The run launched the ``tier`` kernel (``want`` times, when given)
+    and nothing else: no other kernel, no plain version."""
+    others = {k: n for k, n in launches.items() if k != tier}
+    if launches[tier] < 1 or (want is not None and launches[tier] != want) or any(
             others.values()):
-        raise AssertionError(f"{what} did not run the resident tier alone: {launches}")
+        raise AssertionError(f"{what} did not run the {tier} tier alone: {launches}")
 
 
 def toy_phase(card: str) -> dict:
@@ -588,8 +691,8 @@ def toy_phase(card: str) -> dict:
     finally:
         del os.environ["OTGAN_TOY_EPOCH_BATCHES"]
     epochs = epoch_records(run_dir)
-    check_resident_path(launches, "the toy run (rank 0's metrics.jsonl)")
-    check_resident_path(counts, "the toy run (in-process counters)")
+    check_tier_path(launches, "resident", "the toy run (rank 0's metrics.jsonl)")
+    check_tier_path(counts, "resident", "the toy run (in-process counters)")
     steps_ms = [r["step_ms"] for r in first.steps]
     res = dict(launches=launches, steps=len(first.steps), wall_s=wall,
                median_step_ms=float(np.median(steps_ms)), resume_wall_s=resume_wall,
@@ -635,8 +738,8 @@ def dcgan_b256_phase(card: str) -> dict:
         raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError("non-finite dist or entropy at batch 256")
-    check_resident_path(launches, "the batch-256 cycle (rank 0's metrics.jsonl)", want=6)
-    check_resident_path(counts, "the batch-256 cycle (in-process counters)", want=6)
+    check_tier_path(launches, "resident", "the batch-256 cycle (rank 0's metrics.jsonl)", want=6)
+    check_tier_path(counts, "resident", "the batch-256 cycle (in-process counters)", want=6)
     sample_mod.main(["--save_dir", run_dir, "--num_samples", "100"])
     with open(os.path.join(run_dir, "samples.png"), "rb") as f:
         png = f.read()
@@ -667,6 +770,7 @@ def main() -> int:
         return 1
     from otgan_tpu_torch.kernels.build import build_all
     from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+    from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
     from otgan_tpu_torch.ops.costs import cosine_cost
     from otgan_tpu_torch.ops.matching import match_two_batch, two_batch_costs
     from otgan_tpu_torch.ops.sinkhorn import sinkhorn_assignment
@@ -700,18 +804,19 @@ def main() -> int:
     ragged_x = compare_with_plain(ragged, "ragged")["x"]
 
     x = main_cmp.pop("x")
+    exp_rate = sfu_rate()
     kernel_ms = cuda_ms(lambda: sk.col_potential_cuda(x, ITERS), reps=5)
     plain_ms = cuda_ms(lambda: sk.col_potential_plain(x, ITERS), reps=2)
     b, n, m = x.shape
-    bytes_moved = 4 * b * n * m + 4 * b * m
-    ops = OPS_PER_CELL_ITER * b * n * m * ITERS
-    bytes_ms, ops_ms = bytes_moved / bw * 1e3, ops / flops * 1e3
+    # x read once and v written once; the column potential writes no P
+    k1_bound = loop_bound(4 * b * n * m + 4 * b * m, b * n * m * ITERS, bw, flops, exp_rate)
     stream_ms = 4 * b * n * m * ITERS / bw * 1e3  # x streamed every iteration
     print(f"timing at {tuple(x.shape)} x {ITERS} iters on {card}: kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; bound max(bytes {bytes_ms:.4f} ms, ops {ops_ms:.3f} ms) "
-          f"at {peak_key} peaks; streaming x every iteration needs {stream_ms:.3f} ms",
-          flush=True)
-    del x, costs
+          f"plain {plain_ms:.3f} ms; bound {k1_bound['bound_ms']:.4f} ms by "
+          f"{k1_bound['bound_by']} at {peak_key} peaks (expf alone "
+          f"{k1_bound['sfu_floor_ms']:.4f} ms); streaming x every iteration needs "
+          f"{stream_ms:.3f} ms", flush=True)
+    del x
     x_small = sk.scaled_logits(
         two_batch_costs(unit_features(gen, 256, 32768), unit_features(gen, 256, 32768)), LAM
     )
@@ -721,16 +826,19 @@ def main() -> int:
     matcher_ms = cuda_ms(
         lambda: match_two_batch(feats_a, feats_b, LAM, ITERS, use_pallas=True), reps=2
     )
-    print(f"matcher (6 costs, Sinkhorn kernel, softmax, 12 matched-feature matmuls) "
-          f"at batch {BATCH}, d 32768: {matcher_ms:.3f} ms per match on {card}", flush=True)
+    print(f"matcher (6 costs, Sinkhorn kernel of the grid tier, softmax, 12 matched-feature "
+          f"matmuls) at batch {BATCH}, d 32768: {matcher_ms:.3f} ms per match on {card}",
+          flush=True)
     del feats_a, feats_b
 
     small = two_batch_costs(unit_features(gen, 128, 64), unit_features(gen, 128, 64))
     p_o, e_o = sinkhorn_f64(small, LAM, 200)
-    # kernel 1's path, and the public entry, which takes the resident tier here
+    # kernel 1's path, the public entry, which takes the resident tier here,
+    # and the grid kernel on 132 blocks of one row
     for label, (p_k, e_k) in (("kernel 1 path", sk.sinkhorn_assignment_kernel(small, LAM, 200)),
                               ("resident tier", sinkhorn_assignment(small, LAM, 200,
-                                                                    use_pallas=True))):
+                                                                    use_pallas=True)),
+                              ("grid kernel", gc.sinkhorn_grid_cuda(small, LAM, 200))):
         d_or = float((p_k.double() - p_o).abs().max())
         de_or = float((e_k.double() - e_o).abs().max())
         print(f"{label} vs float64 Sinkhorn {tuple(small.shape)} lam={LAM}: "
@@ -738,30 +846,48 @@ def main() -> int:
         if not (d_or <= P_TOL and de_or <= ENT_TOL):
             raise AssertionError(f"the {label} disagrees with the float64 Sinkhorn")
 
+    # ---- 3b. the grid kernel vs plain and kernel 1 at its tier's shapes ----
+    grid_held = {label: hold_grid(c, label, blocks)
+                 for label, (c, blocks) in grid_shapes(gen, costs).items()}
+    grid_t = {"ms": cuda_ms(lambda: gc.sinkhorn_grid_cuda(costs, LAM, ITERS), reps=10),
+              "kernel1_path_ms": cuda_ms(lambda: sk.sinkhorn_assignment_kernel(costs, LAM, ITERS),
+                                         reps=3),
+              "plain_ms": cuda_ms(lambda: gc.sinkhorn_grid_plain(costs, LAM, ITERS), reps=1),
+              **match_bound(b, n, m, bw, flops, exp_rate), "matcher_ms": matcher_ms}
+    print(f"grid tier at {tuple(costs.shape)} x {ITERS} iters on {card}: kernel "
+          f"{grid_t['ms']:.3f} ms per match, kernel 1's path {grid_t['kernel1_path_ms']:.3f} ms, "
+          f"plain {grid_t['plain_ms']:.3f} ms; bound {grid_t['bound_ms']:.4f} ms by "
+          f"{grid_t['bound_by']} (expf alone at the MUFU rate {grid_t['sfu_floor_ms']:.4f} ms); "
+          f"matcher at batch {BATCH} {matcher_ms:.3f} ms", flush=True)
+    del costs
+    torch.cuda.empty_cache()
+
     # ---- 4. the main path, counters zeroed just before ----
     save_dir = os.path.join(REPO, "runs", "chip_smoke")
     argv = ["--preset", "train_py", "--synthetic_data", "--synthetic_size", "10000",
             "--max_epochs", "3", "--log_every_steps", "1", "--save_dir", save_dir]
     torch.cuda.reset_peak_memory_stats()
-    sk.reset_launch_counts()
+    reset_all_counts()
     t0 = time.time()
     result = train_mod.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(sk.launches)
+    launches = train_mod.kernel_launches()
     steps = result.steps
     for rec in steps:
         print(f"step {rec['step']} ({rec['kind']}): dist {rec['dist']:.6f} "
               f"entropy {rec['entropy']:.6f} {rec['step_ms']:.1f} ms/step", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main path: {len(steps)} steps in {wall:.1f} s (init included); launches "
-          f"{launches}; peak memory {peak_gb:.2f} GB on {card}", flush=True)
+    cycle_ms = sum(r["step_ms"] for r in steps)
+    print(f"main path: {len(steps)} steps in {wall:.1f} s (init included); step ms "
+          f"{[r['step_ms'] for r in steps]}, cycle {cycle_ms:.1f} ms "
+          f"({BATCH * len(steps) / cycle_ms * 1e3:.0f} img/s); launches {launches}; peak "
+          f"memory {peak_gb:.2f} GB on {card}", flush=True)
     if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
         raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError("non-finite dist or entropy on the main path")
-    if launches["kernel"] < 1 or launches["plain"] != 0:
-        raise AssertionError(f"the main path did not run through the kernel: {launches}")
+    check_tier_path(launches, "grid", "the main path (batch 5000, 6 x 2500^2)", want=len(steps))
     with torch.no_grad():
         imgs = result.state.gen(torch.zeros((4, 100), device="cuda"))
     if imgs.shape != (4, 32, 32, 3) or not bool(torch.isfinite(imgs).all()):
@@ -791,7 +917,7 @@ def main() -> int:
                              "and stream at (1000, 4000)")
     # each tier at both ranks' blocks; a kernel's own numbers are at the
     # block its tier rule picks it for
-    timing = {mode: {label: time_local_step(blk, mode, bw, flops)
+    timing = {mode: {label: time_local_step(blk, mode, bw, flops, exp_rate)
                      for label, blk in (("6x313x2500", rank_fused),
                                         ("6x1000x4000", rank_stream))}
               for mode in ("fused", "stream")}
@@ -809,12 +935,21 @@ def main() -> int:
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             rank=0, world_size=1)
-    sharded = {}
+    sharded, single_counts = {}, {}
     try:
         rows_matcher = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
         for B in (2000, 8000):
             fa, fb = unit_features(gen, B, 32768), unit_features(gen, B, 32768)
+            # the single-device matcher: the grid tier at batch 2000 (6 x
+            # 1000^2), kernel 1 at batch 8000 (6 x 4000^2, above the grid
+            # tier's ceiling), counters zeroed just before
+            reset_all_counts()
             ref = match_two_batch(fa, fb, LAM, ITERS, use_pallas=True)
+            torch.cuda.synchronize()
+            single_counts[B] = train_mod.kernel_launches()
+            want = "grid" if B == 2000 else "col_potential"
+            check_tier_path(single_counts[B], want, f"the single-device matcher at batch {B}",
+                            want=1)
             st.reset_launch_counts()
             sk.reset_launch_counts()
             got = rows_matcher(fa, fb)
@@ -852,7 +987,7 @@ def main() -> int:
 
     # ---- 8. the resident kernel vs plain and kernel 1 at its tier's shapes ----
     torch.cuda.empty_cache()
-    resident = {label: hold_resident(c, label, bw, flops)
+    resident = {label: hold_resident(c, label, bw, flops, exp_rate)
                 for label, c in resident_shapes(gen).items()}
 
     # ---- 9. the toy path: train, resume, sample; 10. the DCGAN at batch 256 ----
@@ -860,25 +995,45 @@ def main() -> int:
     b256 = dcgan_b256_phase(card)
 
     # ---- 11. the kernels line ----
+    no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
     kernels = [{
+        "name": "sinkhorn_grid",
+        "route": "cuda",
+        "source": "otgan_tpu_torch/csrc/sinkhorn_grid.cu",
+        "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
+        "launches": launches["grid"],
+        "launches_from": "phase 4: the main path, one 5:1 cycle of --preset train_py at batch "
+                         "5000 (in-process counters)",
+        "launches_per_step": launches["grid"] / len(steps),
+        "max_abs_err": max(r["max_abs_dP"] for r in grid_held.values()),
+        **grid_t,
+        "library_ms": None,
+        "library_null_reason": no_loop_library,
+        "shape": [b, n, m],
+        "n_iters": ITERS,
+        "plan": grid_held["main_6x2500"]["plan"],
+        "held": grid_held,
+        "main_path_ms_per_step": [r["step_ms"] for r in steps],
+        "main_path_cycle_ms": cycle_ms,
+        "main_path_peak_gb": peak_gb,
+    }, {
         "name": "sinkhorn_col_potential",
         "route": "cuda",
         "source": "otgan_tpu_torch/csrc/sinkhorn.cu",
         "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
-        "launches": launches["kernel"],
-        "launches_per_step": launches["kernel"] / len(steps),
+        "launches": single_counts[8000]["col_potential"],
+        "launches_from": "phase 6: the single-device matcher at batch 8000 (6 x 4000^2, above "
+                         "the grid tier's ceiling), counters zeroed just before; the main path "
+                         "takes the grid tier",
         "max_abs_err": main_cmp["max_abs_dP"],
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **k1_bound,
         "library_ms": None,
+        "library_null_reason": no_loop_library,
         "shape": [b, n, m],
         "n_iters": ITERS,
-        "matcher_ms": matcher_ms,
         "ms_at_batch_256": small_ms,
-        "main_path_ms_per_step": [r["step_ms"] for r in steps],
     }]
     no_library = ("no single PyTorch call computes the (m, s) column partials of a "
                   "Sinkhorn row step")
@@ -922,8 +1077,9 @@ def main() -> int:
         "plain_ms": own["plain_ms"],
         "bound_ms": own["bound_ms"],
         "bound_by": own["bound_by"],
+        "sfu_floor_ms": own["sfu_floor_ms"],
         "library_ms": None,
-        "library_null_reason": "no single PyTorch call runs n Sinkhorn iterations",
+        "library_null_reason": no_loop_library,
         "shape": own["shape"],
         "n_iters": ITERS,
         "cluster": own["cluster"],

@@ -21,7 +21,7 @@ import json
 import torch
 
 from chip_smoke import (ITERS, LAM, card_line, cuda_ms, hold_resident, peaks, resident_shapes,
-                        unit_features)
+                        sfu_rate, unit_features)
 from otgan_tpu_torch.kernels.build import build_all
 from otgan_tpu_torch.ops import sinkhorn_cuda as sk
 from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
@@ -56,7 +56,8 @@ def main() -> None:
     true_f32()
     _, (bw, flops) = peaks(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    held = {label: hold_resident(c, label, bw, flops)
+    exp_rate = sfu_rate()
+    held = {label: hold_resident(c, label, bw, flops, exp_rate)
             for label, c in resident_shapes(gen).items()}
     res = {"card": card, "held": held, "sweep_ms": sweep(gen)}
     print(json.dumps(res), flush=True)

@@ -12,20 +12,36 @@ softmax of ``log_a`` and the entropy its mean row Shannon entropy. All of it
 is float32.
 
 ``sinkhorn_assignment(use_pallas=True)`` runs the loop in a hand-written
-CUDA kernel, in one of two tiers: every matrix the shared-memory kernel
-holds (``resident_supported``: at most 768^2 cells) goes whole to it
-(``ops/sinkhorn_resident_cuda.py``, one launch per match, softmax and
-entropy included), larger ones to the column-potential kernel
-(``ops/sinkhorn_cuda.py``, two launches per iteration). The resident kernel
-was the faster of the two at every size it holds on an H100
-(``measure_resident.py``; PERF.md), so the tier's boundary is its ceiling.
+CUDA kernel, in one of three tiers chosen by :func:`kernel_tier` from the
+matrix shape and the card's SM count and shared memory, never by a failed
+build or launch:
+
+1. the resident kernel (``ops/sinkhorn_resident_cuda.py``: one thread-block
+   cluster a matrix) for matrices of at most ``RESIDENT_TIER_CELLS`` cells;
+2. the grid kernel (``ops/sinkhorn_grid_cuda.py``: the matrix held in the
+   shared memory of the whole card) for every larger matrix it holds, up to
+   2640^2 on an H100 (the reference batch 5000's 2500^2 included);
+3. the column-potential kernel (``ops/sinkhorn_cuda.py``, two launches per
+   iteration) above that, e.g. batch 8000's 4000^2.
+
+The first two are one launch per match, softmax and entropy included. The
+boundary between them is measured (``measure_grid.py`` on an H100 at 6 x
+N^2, lam 500, 500 iterations; PERF.md): the resident kernel is faster at
+128^2 (1.61 vs 2.87 ms) and 256^2 (2.66 vs 2.91 ms), the grid kernel from
+384^2 on (3.28 vs 4.00 ms; 5.69 vs 8.81 ms at 768^2).
 The name of the flag is kept so that a ``config.json`` reads in both
 packages.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+# matrices of at most this many cells go to the resident tier (see
+# kernel_tier); the rest that the grid kernel holds go to it
+RESIDENT_TIER_CELLS = 256 * 256
 
 
 def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -85,6 +101,20 @@ def sinkhorn_log_tol(neg_lam_cost: torch.Tensor, max_iters: int, tol: float):
     return log_a, torch.tensor(iters, dtype=torch.int32).reshape(batch_shape)
 
 
+def kernel_tier(n: int, m: int, limits: Tuple[int, int]) -> str:
+    """The CUDA kernel that runs an ``(n, m)`` matrix on a card of
+    ``limits`` (SM count, shared memory a block may use): ``"resident"``,
+    ``"grid"`` or ``"tiled"`` (the column-potential kernel)."""
+    from otgan_tpu_torch.ops.sinkhorn_grid_cuda import grid_plan
+    from otgan_tpu_torch.ops.sinkhorn_resident_cuda import resident_supported
+
+    if n * m <= RESIDENT_TIER_CELLS and resident_supported(n, m):
+        return "resident"
+    if grid_plan(n, m, *limits) is not None:
+        return "grid"
+    return "tiled"
+
+
 @torch.no_grad()
 def sinkhorn_assignment(
     cost: torch.Tensor,
@@ -98,7 +128,9 @@ def sinkhorn_assignment(
     The plan is not differentiated: the reference seeds backprop at the
     feature tensors, so the cost is detached here. ``tol > 0`` takes the
     early-exit loop (a dynamic trip count the fixed-count kernels do not
-    run); otherwise ``use_pallas`` selects a CUDA kernel by the matrix size.
+    run); otherwise ``use_pallas`` selects a CUDA kernel by the matrix
+    shape (:func:`kernel_tier`); for a tensor on the CPU each tier runs its
+    plain version, planned with an H100's limits.
     """
     cost = cost.detach()
     if tol > 0.0:
@@ -106,13 +138,14 @@ def sinkhorn_assignment(
         return assignment_and_entropy(log_a)
     if use_pallas:
         from otgan_tpu_torch.ops.sinkhorn_cuda import sinkhorn_assignment_kernel
-        from otgan_tpu_torch.ops.sinkhorn_resident_cuda import (
-            resident_supported,
-            sinkhorn_resident,
-        )
+        from otgan_tpu_torch.ops.sinkhorn_grid_cuda import card_limits, sinkhorn_grid
+        from otgan_tpu_torch.ops.sinkhorn_resident_cuda import sinkhorn_resident
 
-        if resident_supported(*cost.shape[-2:]):
+        tier = kernel_tier(*cost.shape[-2:], card_limits(cost.device))
+        if tier == "resident":
             return sinkhorn_resident(cost, lam, n_iters)
+        if tier == "grid":
+            return sinkhorn_grid(cost, lam, n_iters)
         return sinkhorn_assignment_kernel(cost, lam, n_iters)
     log_a, _, _ = sinkhorn_log(-lam * cost.float(), n_iters)
     return assignment_and_entropy(log_a)

@@ -45,7 +45,12 @@ from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namesp
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
 from otgan_tpu_torch.data.toy import sample_8gaussians
 from otgan_tpu_torch.engine import Engine, TrainState
-from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
+from otgan_tpu_torch.ops import (
+    sinkhorn_cuda,
+    sinkhorn_grid_cuda,
+    sinkhorn_resident_cuda,
+    sinkhorn_step_cuda,
+)
 from otgan_tpu_torch.parallel.mesh import init_from_env
 from otgan_tpu_torch.utils.checkpoint import (
     checkpoint_step,
@@ -97,6 +102,8 @@ def kernel_launches() -> dict:
             "col_potential_plain": sinkhorn_cuda.launches["plain"],
             "resident": sinkhorn_resident_cuda.launches["kernel"],
             "resident_plain": sinkhorn_resident_cuda.launches["plain"],
+            "grid": sinkhorn_grid_cuda.launches["kernel"],
+            "grid_plain": sinkhorn_grid_cuda.launches["plain"],
             **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()}}
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA Sinkhorn kernels on a card (the column-potential
-loop, the row-sharded matcher's local step and the resident whole-loop
-kernel), against their plain PyTorch versions on the same logits. Every test here needs an NVIDIA GPU and
+loop, the row-sharded matcher's local step, the resident whole-loop kernel
+and the grid whole-loop kernel), against their plain PyTorch versions on the
+same logits. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
@@ -17,7 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
+from otgan_tpu_torch.ops import (
+    sinkhorn_cuda,
+    sinkhorn_grid_cuda,
+    sinkhorn_resident_cuda,
+    sinkhorn_step_cuda,
+)
 from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy, sinkhorn_assignment
 
 
@@ -69,22 +75,29 @@ def test_zero_iterations_and_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_public_entry_launches_kernel_not_plain(cuda_device):
-    """The resident tier up to 768^2 cells, kernel 1 above; no plain
+    """The resident tier up to 256^2 cells, the grid tier above it while the
+    card's shared memory holds the matrix, kernel 1 above that; no plain
     version on the card."""
-    sinkhorn_cuda.reset_launch_counts()
-    sinkhorn_resident_cuda.reset_launch_counts()
+    for mod in (sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_grid_cuda):
+        mod.reset_launch_counts()
     p, e = sinkhorn_assignment(_costs(6, 64, 64, 32).to(cuda_device), 500.0, 50,
                                use_pallas=True)
     assert sinkhorn_resident_cuda.launches == {"kernel": 1, "plain": 0}
-    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
+    assert sinkhorn_cuda.launches == sinkhorn_grid_cuda.launches == {"kernel": 0, "plain": 0}
     assert p.shape == (6, 64, 64) and e.shape == (6,)
     torch.testing.assert_close(p.sum(-1), torch.ones(6, 64, device=cuda_device),
                                atol=1e-5, rtol=0)
     p, e = sinkhorn_assignment(_costs(1, 800, 800, 32).to(cuda_device)[0], 500.0, 50,
                                use_pallas=True)
-    assert sinkhorn_cuda.launches == {"kernel": 1, "plain": 0}
-    assert sinkhorn_resident_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_grid_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
     assert p.shape == (800, 800) and e.shape == ()
+    p, e = sinkhorn_assignment(_costs(1, 2700, 2700, 32).to(cuda_device)[0], 500.0, 20,
+                               use_pallas=True)
+    assert sinkhorn_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_grid_cuda.launches == sinkhorn_resident_cuda.launches == {
+        "kernel": 1, "plain": 0}
+    assert p.shape == (2700, 2700) and e.shape == ()
 
 
 @pytest.mark.cuda
@@ -204,3 +217,89 @@ def test_resident_bad_inputs_raise(cuda_device):
     with pytest.raises(ValueError, match="cannot hold"):
         sinkhorn_resident_cuda.sinkhorn_resident_cuda(
             torch.rand(1, 768, 768, device=cuda_device), 50.0, 3, cluster_size=4)
+
+
+def _grid_costs(shape, device):
+    """Square costs from 64-wide unit features; ``"+999"`` puts the
+    single-batch self-match diagonal on the first two of three matrices."""
+    b, n, m = shape[:3]
+    c = _costs(b, n, m, 64, seed=n + m)
+    if len(shape) > 3:
+        c[:2] += 999.0 * torch.eye(n)
+    return c.to(device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [8, 33, "all"])
+@pytest.mark.parametrize("shape", [(6, 1024, 1024), (3, 1000, 1900), (3, 1200, 1200, "+999"),
+                                   (6, 400, 500)])
+def test_grid_kernel_matches_plain(cuda_device, shape, blocks):
+    """lam = 500, 500 iterations on the squares (100 on the rectangle, whose
+    potentials drift): P within 1e-5 and entropy within 1e-4 of the plain
+    version, on a forced block count per matrix (8, 33, one per SM), so
+    bands run from a few rows to 128 and the fold crosses from 8 to 132
+    blocks; diag(P) of the +999 matrices stays 0. A block count whose bands
+    do not fit is refused with a ValueError."""
+    costs = _grid_costs(shape, cuda_device)
+    b, n, m = costs.shape
+    sms, smem = sinkhorn_grid_cuda.card_limits(cuda_device)
+    n_blocks = sms if blocks == "all" else blocks
+    iters = 500 if n == m else 100
+    if sinkhorn_grid_cuda.grid_plan(n, m, sms, smem, n_blocks, batch=b) is None:
+        with pytest.raises(ValueError, match="cannot hold"):
+            sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 500.0, iters, blocks=n_blocks)
+        return
+    before = dict(sinkhorn_grid_cuda.launches)
+    p, e = sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 500.0, iters, blocks=n_blocks)
+    torch.cuda.synchronize()
+    assert sinkhorn_grid_cuda.launches == {"kernel": before["kernel"] + 1,
+                                           "plain": before["plain"]}
+    p_ref, e_ref = sinkhorn_grid_cuda.sinkhorn_grid_plain(costs, 500.0, iters)
+    assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(e).all())
+    torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+    if len(shape) > 3:
+        assert float(torch.diagonal(p[:2], dim1=1, dim2=2).max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_grid_zero_iterations_and_ragged_width(cuda_device):
+    """No iteration: P is the row softmax of -lam C. A width that is not a
+    multiple of 4 takes the scalar load and the -inf padded rows."""
+    costs = _costs(2, 300, 501, 32).to(cuda_device)
+    p0, _ = sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 50.0, 0)
+    torch.testing.assert_close(p0, torch.softmax(-50.0 * costs, dim=-1), atol=1e-6, rtol=0)
+    p, e = sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 50.0, 100)
+    p_ref, e_ref = sinkhorn_grid_cuda.sinkhorn_grid_plain(costs, 50.0, 100)
+    torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_grid_bad_inputs_raise(cuda_device):
+    x = torch.rand(2, 20, 30, device=cuda_device)
+    with pytest.raises(ValueError):
+        sinkhorn_grid_cuda.sinkhorn_grid_cuda(x.transpose(1, 2), 50.0, 3)
+    with pytest.raises(ValueError):
+        sinkhorn_grid_cuda.sinkhorn_grid_cuda(x.double(), 50.0, 3)
+    with pytest.raises(ValueError, match="cannot hold"):
+        sinkhorn_grid_cuda.sinkhorn_grid_cuda(torch.rand(1, 4000, 4000, device=cuda_device),
+                                              50.0, 3)
+    with pytest.raises(ValueError, match="cannot hold"):
+        sinkhorn_grid_cuda.sinkhorn_grid_cuda(x, 50.0, 3, blocks=100000)
+
+
+@pytest.mark.cuda
+def test_grid_public_entry_at_batch_5000(cuda_device):
+    """The main path's 6 x 2500^2 through the public entry: the grid tier,
+    not kernel 1, and kernel 1's assignment within 1e-5."""
+    costs = _costs(6, 2500, 2500, 64).to(cuda_device)
+    for mod in (sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_grid_cuda):
+        mod.reset_launch_counts()
+    p, e = sinkhorn_assignment(costs, 500.0, 100, use_pallas=True)
+    torch.cuda.synchronize()
+    assert sinkhorn_grid_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_cuda.launches == sinkhorn_resident_cuda.launches == {"kernel": 0, "plain": 0}
+    p_k1, e_k1 = sinkhorn_cuda.sinkhorn_assignment_kernel(costs, 500.0, 100)
+    torch.testing.assert_close(p, p_k1, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_k1, atol=1e-4, rtol=0)

@@ -319,5 +319,5 @@ def test_torchrun_cli_two_ranks_rows(tmp_path):
         "row-sharded (two-batch, whole local halves on the 2-device mesh)")
     assert [r["launches"] for r in recs if "epoch" in r] == [
         {"col_potential": 0, "col_potential_plain": 0, "resident": 0, "resident_plain": 0,
-         "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 5 * steps}
+         "grid": 0, "grid_plain": 0, "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 5 * steps}
         for steps in (1, 2)]

@@ -2,7 +2,7 @@
 ``ops/sinkhorn_resident_cuda.py``) on the CPU: its plain version against the
 JAX kernel ``_sinkhorn_pallas_batched`` in interpret mode and against the
 float64 oracle, the shapes the kernel holds, and the dispatch between the
-two tiers. The same numpy inputs go to both packages.
+three tiers. The same numpy inputs go to both packages.
 
 Tolerances are the JAX package's own: P within 1e-5 and entropy within 1e-4
 (tests/test_sinkhorn_pallas.py), and at lam = 500 with the +999 diagonal
@@ -17,7 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from otgan_tpu.ops.sinkhorn_pallas import _sinkhorn_pallas_batched, pallas_supported
-from otgan_tpu_torch.ops import sinkhorn_cuda
+from otgan_tpu_torch.ops import sinkhorn_cuda, sinkhorn_grid_cuda
 from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
 from otgan_tpu_torch.ops.sinkhorn import sinkhorn_assignment
 from tests.reference_impl import sinkhorn_np
@@ -103,20 +103,26 @@ def test_resident_supported_cases():
 
 def test_dispatch_on_cpu_counts_each_tier():
     """``use_pallas`` on the CPU: the resident tier's plain version up to
-    the kernel's ceiling of 768^2 cells, kernel 1's plain version above it;
-    neither with ``tol`` > 0 or without ``use_pallas``."""
+    the measured boundary of 256^2 cells, the grid tier's above it (800^2),
+    kernel 1's plain version above the grid kernel's ceiling (2641^2 on an
+    H100's limits); none with ``tol`` > 0 or without ``use_pallas``."""
     small = torch.from_numpy(_costs(5, 6, 128, 128))
-    big = torch.from_numpy(_costs(6, 1, 800, 800, d=8))[0]
-    rc.reset_launch_counts()
-    sinkhorn_cuda.reset_launch_counts()
+    mid = torch.from_numpy(_costs(6, 1, 800, 800, d=8))[0]
+    big = torch.from_numpy(_costs(6, 1, 2641, 2641, d=8))[0]
+    for mod in (rc, sinkhorn_cuda, sinkhorn_grid_cuda):
+        mod.reset_launch_counts()
     p, e = sinkhorn_assignment(small, 50.0, 5, use_pallas=True)
     assert p.shape == (6, 128, 128) and e.shape == (6,)
     assert rc.launches == {"kernel": 0, "plain": 1}
-    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
-    p, e = sinkhorn_assignment(big, 50.0, 2, use_pallas=True)
+    assert sinkhorn_cuda.launches == sinkhorn_grid_cuda.launches == {"kernel": 0, "plain": 0}
+    p, e = sinkhorn_assignment(mid, 50.0, 2, use_pallas=True)
     assert p.shape == (800, 800) and e.shape == ()
-    assert rc.launches == {"kernel": 0, "plain": 1}
-    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 1}
+    assert rc.launches == sinkhorn_grid_cuda.launches == {"kernel": 0, "plain": 1}
+    assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
+    p, e = sinkhorn_assignment(big, 50.0, 1, use_pallas=True)
+    assert p.shape == (2641, 2641) and e.shape == ()
+    assert rc.launches == sinkhorn_grid_cuda.launches == sinkhorn_cuda.launches == {
+        "kernel": 0, "plain": 1}
     sinkhorn_assignment(small, 50.0, 5, use_pallas=True, tol=1e-3)
     sinkhorn_assignment(small, 50.0, 5)
     assert rc.launches["plain"] == 1 and sinkhorn_cuda.launches["plain"] == 1
