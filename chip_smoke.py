@@ -7,10 +7,11 @@ Run from the root of a checkout, it
 2. builds every CUDA kernel from ``otgan_tpu_torch/csrc/``;
 3. holds the column-potential kernel (kernel 1) against its plain PyTorch
    version on the card, at the main path's shapes (6 x 2500^2, lam = 500,
-   500 iterations) and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5
-   and |d entropy| <= 1e-4; then kernel 1's path, the public entry (which
-   takes the resident tier at that size) and the grid kernel against a
-   float64 Sinkhorn on a small input;
+   500 iterations), where kernel 1's path is the grid kernel's yardstick,
+   and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5 and |d entropy|
+   <= 1e-4; then kernel 1's path, the public entry (which takes the
+   resident tier at that size) and the grid kernel against a float64
+   Sinkhorn on a small input;
 3b. holds the grid kernel (one launch per match, the matrix in the shared
    memory of the whole card) against its plain version and against kernel
    1's path at lam = 500, 500 iterations: the main path's 6 x 2500^2, a
@@ -39,18 +40,25 @@ Run from the root of a checkout, it
    (6, 4000, 4000), stream tier), counters zeroed just before and read just
    after, against the single-device matcher (matched features and entropy
    within 1e-4), whose own launches are read too: the grid tier at batch
-   2000, kernel 1 at batch 8000 (6 x 4000^2, above the grid tier);
+   2000, kernel 1 at batch 8000 (6 x 4000^2, above the grid tier), the one
+   path left to kernel 1 on one card: there kernel 1 is held against its
+   plain version on the matcher's own costs (P within 1e-5, entropy within
+   1e-4) and timed beside it and its bound, the numbers of its entry;
 7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
    are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
    single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
    8000), then training on the row-sharded matcher, once per local-step
    tier: one 3:1 cycle of ``--preset model_saving`` (layout auto, which
    resolves to rows; stream tier) and one 5:1 cycle of ``--preset
-   train_py --batch_size 1000K --matching_layout rows`` (fused tier). Rank
-   0 logs the kernels' launch counts of the cycle to ``metrics.jsonl``:
-   the tier's kernel must have launched and no plain version run. On one
-   card it says that it skipped this, and that the local-step kernels'
-   launches then come from phase 6, not from their training path;
+   train_py --batch_size 1000K --matching_layout rows`` (fused tier); then
+   one 5:1 cycle of ``--preset train_py --matching_layout matrices`` (the
+   layout ``auto`` picks for train_py: whole 2500^2 matrices on each rank,
+   the grid tier between the collectives). Rank 0 logs the kernels' launch
+   counts of the cycle to ``metrics.jsonl``: the tier's kernel must have
+   launched (the grid kernel once per matrix rank 0 owns and step) and no
+   plain version run. On one card it says that it skipped this, and that
+   the local-step kernels' launches then come from phase 6, not from their
+   training path;
 8. holds the resident kernel (one launch per match, the matrices in shared
    memory) against its plain version and against kernel 1's path at lam =
    500, 500 iterations: (6, 128, 128) (the DCGAN at batch 256), (6, 256,
@@ -181,6 +189,23 @@ def compare_with_plain(costs, label: str) -> dict:
     return {"x": x, **res}
 
 
+def time_kernel1(costs, bw: float, flops: float, exp_rate: float) -> dict:
+    """Kernel 1 on ``costs``: held against its plain version (raises past
+    the limits), then its time, the plain version's and its bound: x read
+    once and v written once (the column potential writes no P)."""
+    from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+
+    held = compare_with_plain(costs, "kernel 1's path")
+    x = held.pop("x")
+    b, n, m = x.shape
+    return {"max_abs_err": held["max_abs_dP"], "held": held,
+            "ms": cuda_ms(lambda: sk.col_potential_cuda(x, ITERS), reps=3),
+            "plain_ms": cuda_ms(lambda: sk.col_potential_plain(x, ITERS), reps=2),
+            **loop_bound(4 * b * n * m + 4 * b * m, b * n * m * ITERS, bw, flops, exp_rate),
+            "stream_ms": 4 * b * n * m * ITERS / bw * 1e3,  # x streamed every iteration
+            "shape": [b, n, m]}
+
+
 def sinkhorn_f64(cost, lam: float, iters: int):
     """The reference recursion in float64 (``utils/matching.py:50-57``)."""
     import torch
@@ -300,11 +325,12 @@ def hold_grid(costs, label: str, blocks=None) -> dict:
     import torch
     from otgan_tpu_torch.ops import sinkhorn_cuda as sk
     from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
+    from otgan_tpu_torch.ops.sinkhorn_resident_cuda import sinkhorn_resident_plain
 
     b, n, m = costs.shape
     sms, smem = gc.card_limits(costs.device)
     p, e = gc.sinkhorn_grid_cuda(costs, LAM, ITERS, blocks=blocks)
-    p_ref, e_ref = gc.sinkhorn_grid_plain(costs, LAM, ITERS)
+    p_ref, e_ref = sinkhorn_resident_plain(costs, LAM, ITERS)
     res = {"shape": [b, n, m], "plan": list(gc.grid_plan(n, m, sms, smem, blocks, batch=b)),
            "max_abs_dP": float((p - p_ref).abs().max()),
            "max_abs_dentropy": float((e - e_ref).abs().max())}
@@ -557,10 +583,15 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env)
     """One cycle of ``otgan_tpu_torch.train --preset preset`` on ``k`` GPUs
     under torchrun, on synthetic data of two batches; checks the cycle, its
     finite dist and entropy, and from rank 0's ``metrics.jsonl`` that the
-    row-sharded matcher ran the ``tier`` kernel and no plain version."""
+    matcher ran the ``tier`` kernel and no plain version: a local-step tier
+    (``fused``, ``stream``) of the row-sharded matcher, or ``grid`` for the
+    matrix-parallel one, which must launch it once per matrix rank 0 owns
+    and step, and nothing else."""
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+    from otgan_tpu_torch.parallel.matching_matrix import _owner_counts
 
-    run_dir = os.path.join(REPO, "runs", f"chip_smoke_{k}gpu_{preset}")
+    run_dir = os.path.join(REPO, "runs", f"chip_smoke_{k}gpu_{preset}_{tier}")
+    shutil.rmtree(run_dir, ignore_errors=True)  # metrics.jsonl is appended to
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={k}", "-m", "otgan_tpu_torch.train", "--num_devices", str(k),
            "--preset", preset, "--synthetic_data", "--synthetic_size", str(2 * batch),
@@ -584,6 +615,14 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env)
         raise AssertionError(f"expected the cycle {kinds}, got {[r['kind'] for r in steps]}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError(f"non-finite dist or entropy on {k} GPUs ({preset})")
+    if tier == "grid":
+        if not res["matcher"].startswith("matrix-parallel"):
+            raise AssertionError(f"the run did not take the matrix-parallel matcher: "
+                                 f"{res['matcher']}")
+        rounds = _owner_counts(6, k)[0]  # matrices rank 0 owns a step
+        check_tier_path(launches, "grid", f"training on {k} GPUs ({preset}, matrices)",
+                        want=rounds * len(steps))
+        return res
     if not res["matcher"].startswith("row-sharded"):
         raise AssertionError(f"the run did not take the row-sharded matcher: {res['matcher']}")
     if st.local_step_mode(batch // 2 // k, batch // 2) != tier:
@@ -597,7 +636,8 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env)
 def multi_gpu_phase(n_cards: int) -> dict:
     """With more than one card: the row-sharded matcher over the ranks
     (``--ranks``), then training on the row-sharded matcher once per
-    local-step tier. Returns the runs by tier, or ``{}`` on one card."""
+    local-step tier, then on the matrix-parallel matcher (the grid tier).
+    Returns the runs by tier, or ``{}`` on one card."""
     import torch
 
     if n_cards < 2:
@@ -631,6 +671,9 @@ def multi_gpu_phase(n_cards: int) -> dict:
         k, "train_py", 1000 * k, ["--batch_size", str(1000 * k), "--matching_layout", "rows",
                                   "--max_epochs", "3"],
         ["disc"] + ["gen"] * 5, "fused", env)
+    multi["grid"] = train_on_gpus(k, "train_py", BATCH, ["--matching_layout", "matrices",
+                                                         "--max_epochs", "3"],
+                                  ["disc"] + ["gen"] * 5, "grid", env)
     return multi
 
 
@@ -774,6 +817,7 @@ def main() -> int:
     from otgan_tpu_torch.ops.costs import cosine_cost
     from otgan_tpu_torch.ops.matching import match_two_batch, two_batch_costs
     from otgan_tpu_torch.ops.sinkhorn import sinkhorn_assignment
+    from otgan_tpu_torch.ops.sinkhorn_resident_cuda import sinkhorn_resident_plain
     from otgan_tpu_torch import train as train_mod
 
     t_start = time.time()
@@ -794,7 +838,7 @@ def main() -> int:
     feats_a = unit_features(gen, BATCH, 32768)
     feats_b = unit_features(gen, BATCH, 32768)
     costs = two_batch_costs(feats_a, feats_b)
-    main_cmp = compare_with_plain(costs, "main-path")
+    compare_with_plain(costs, "main-path")
     # ragged edges in both dims (100 rows of 16-row panels, 228 columns of
     # 256-thread blocks), from critic-width features like the main path's
     ragged = torch.stack([
@@ -803,26 +847,8 @@ def main() -> int:
     ])
     ragged_x = compare_with_plain(ragged, "ragged")["x"]
 
-    x = main_cmp.pop("x")
     exp_rate = sfu_rate()
-    kernel_ms = cuda_ms(lambda: sk.col_potential_cuda(x, ITERS), reps=5)
-    plain_ms = cuda_ms(lambda: sk.col_potential_plain(x, ITERS), reps=2)
-    b, n, m = x.shape
-    # x read once and v written once; the column potential writes no P
-    k1_bound = loop_bound(4 * b * n * m + 4 * b * m, b * n * m * ITERS, bw, flops, exp_rate)
-    stream_ms = 4 * b * n * m * ITERS / bw * 1e3  # x streamed every iteration
-    print(f"timing at {tuple(x.shape)} x {ITERS} iters on {card}: kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; bound {k1_bound['bound_ms']:.4f} ms by "
-          f"{k1_bound['bound_by']} at {peak_key} peaks (expf alone "
-          f"{k1_bound['sfu_floor_ms']:.4f} ms); streaming x every iteration needs "
-          f"{stream_ms:.3f} ms", flush=True)
-    del x
-    x_small = sk.scaled_logits(
-        two_batch_costs(unit_features(gen, 256, 32768), unit_features(gen, 256, 32768)), LAM
-    )
-    small_ms = cuda_ms(lambda: sk.col_potential_cuda(x_small, ITERS), reps=5)
-    print(f"kernel at batch 256 {tuple(x_small.shape)} x {ITERS} iters: {small_ms:.3f} ms "
-          f"({small_ms / (2 * ITERS) * 1e3:.2f} us per launch) on {card}", flush=True)
+    b, n, m = costs.shape
     matcher_ms = cuda_ms(
         lambda: match_two_batch(feats_a, feats_b, LAM, ITERS, use_pallas=True), reps=2
     )
@@ -852,7 +878,7 @@ def main() -> int:
     grid_t = {"ms": cuda_ms(lambda: gc.sinkhorn_grid_cuda(costs, LAM, ITERS), reps=10),
               "kernel1_path_ms": cuda_ms(lambda: sk.sinkhorn_assignment_kernel(costs, LAM, ITERS),
                                          reps=3),
-              "plain_ms": cuda_ms(lambda: gc.sinkhorn_grid_plain(costs, LAM, ITERS), reps=1),
+              "plain_ms": cuda_ms(lambda: sinkhorn_resident_plain(costs, LAM, ITERS), reps=1),
               **match_bound(b, n, m, bw, flops, exp_rate), "matcher_ms": matcher_ms}
     print(f"grid tier at {tuple(costs.shape)} x {ITERS} iters on {card}: kernel "
           f"{grid_t['ms']:.3f} ms per match, kernel 1's path {grid_t['kernel1_path_ms']:.3f} ms, "
@@ -950,6 +976,14 @@ def main() -> int:
             want = "grid" if B == 2000 else "col_potential"
             check_tier_path(single_counts[B], want, f"the single-device matcher at batch {B}",
                             want=1)
+            if B == 8000:
+                k1 = time_kernel1(two_batch_costs(fa, fb), bw, flops, exp_rate)
+                print(f"kernel 1 at {k1['shape']} x {ITERS} iters, the single-device matcher's "
+                      f"costs at batch {B}, on {card}: kernel {k1['ms']:.3f} ms, plain "
+                      f"{k1['plain_ms']:.3f} ms; bound {k1['bound_ms']:.4f} ms by "
+                      f"{k1['bound_by']} at {peak_key} peaks (expf alone "
+                      f"{k1['sfu_floor_ms']:.4f} ms); streaming x every iteration needs "
+                      f"{k1['stream_ms']:.3f} ms", flush=True)
             st.reset_launch_counts()
             sk.reset_launch_counts()
             got = rows_matcher(fa, fb)
@@ -1024,16 +1058,12 @@ def main() -> int:
         "launches": single_counts[8000]["col_potential"],
         "launches_from": "phase 6: the single-device matcher at batch 8000 (6 x 4000^2, above "
                          "the grid tier's ceiling), counters zeroed just before; the main path "
-                         "takes the grid tier",
-        "max_abs_err": main_cmp["max_abs_dP"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        **k1_bound,
+                         "takes the grid tier. Every number of this entry is at that shape, on "
+                         "the matcher's costs",
+        **k1,
         "library_ms": None,
         "library_null_reason": no_loop_library,
-        "shape": [b, n, m],
         "n_iters": ITERS,
-        "ms_at_batch_256": small_ms,
     }]
     no_library = ("no single PyTorch call computes the (m, s) column partials of a "
                   "Sinkhorn row step")

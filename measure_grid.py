@@ -6,19 +6,13 @@ and the grid kernel's plan (``ops/sinkhorn_grid_cuda.py``):
 
 1. The grid barrier alone: ``BARRIERS`` grid-wide barriers and nothing else
    on 132 (one per SM on an H100), 66 and 33 blocks of 1024 threads, in us
-   per barrier. Then the exponential alone: 8 independent chains of
-   ``expf`` (the loops' function) and of ``exp2f`` (nearly one MUFU.EX2
-   each) per thread on a block of 1024 threads per SM, in exponentials per
-   clock per SM at the card's ``clocks.max.sm``.
-2. The block-count sweep: at 6 x 2500^2 every count from the fewest whose
-   bands fit (120 on an H100) to one per SM, and at 6 x 1000^2 33, 66 and
-   132 blocks a matrix (2500^2 fits in no fewer than 120); each also with
+   per barrier.
+2. The block-count sweep: at 6 x 2500^2 the fewest blocks a matrix whose
+   bands fit (120 on an H100; 33 and 66 do not), the count halfway to one
+   per SM, and one per SM; at 6 x 1000^2 33, 66 and 132; each also with
    no iteration (the fixed cost: C read, P and the entropy written), and
    the us per iteration that the difference gives.
-3. Where one launch's time goes at 6 x 2500^2 and 6 x 1000^2 on their
-   plans: the profiled build of the kernel (``grid_phase_cycles``), SM
-   cycles per phase and iteration (mean over the blocks, and the max).
-4. Per match at 6 x N^2 two-batch costs (d 32768, lam 500, 500
+3. Per match at 6 x N^2 two-batch costs (d 32768, lam 500, 500
    iterations), N = 128, 256, 384, 512, 768, 1024, 1500, 2000, 2500 and the
    largest square the grid kernel holds: the grid kernel on its plan, the
    resident kernel where it holds the matrix, and kernel 1's path
@@ -32,7 +26,6 @@ JSON line of results last. It needs a card and raises without one.
 from __future__ import annotations
 
 import json
-import subprocess
 
 import torch
 
@@ -45,7 +38,6 @@ from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.ops.matching import two_batch_costs
 
 BARRIERS = 20000
-EXP_CHAIN = 20000  # exponentials per chain of the rate loop
 TIER_N = [128, 256, 384, 512, 768, 1024, 1500, 2000, 2500]
 
 
@@ -61,21 +53,6 @@ def barrier_us() -> dict:
     print(f"grid barrier alone, us per barrier ({gc.THREADS} threads a block): "
           + json.dumps(out), flush=True)
     return out
-
-
-def exp_rate(sms: int) -> dict:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
-    res = {}
-    for name, exp2 in (("expf", False), ("exp2f", True)):
-        count = gc.exp_rate_loop_cuda(exp2, sms, EXP_CHAIN)
-        ms = cuda_ms(lambda: gc.exp_rate_loop_cuda(exp2, sms, EXP_CHAIN), reps=3)
-        res[f"{name}_per_clock_per_sm"] = count / (ms * 1e-3 * hz) / sms
-    print(f"exponential alone, per clock per SM at {hz / 1e6:.0f} MHz: " + json.dumps(res),
-          flush=True)
-    return res
 
 
 def block_sweep(gen, sms: int, smem: int) -> dict:
@@ -96,17 +73,6 @@ def block_sweep(gen, sms: int, smem: int) -> dict:
             out[f"6x{n}^2_{blocks}_blocks"] = res
             print(f"grid kernel at 6 x {n}^2 on {blocks} blocks a matrix: {json.dumps(res)}",
                   flush=True)
-        del costs
-    return out
-
-
-def phases(gen) -> dict:
-    out = {}
-    for n in (2500, 1000):
-        costs = costs_6(gen, n)
-        out[f"6x{n}^2"] = gc.grid_phase_cycles(costs, LAM, ITERS)
-        print(f"grid kernel at 6 x {n}^2, SM cycles by phase (profiled build): "
-              + json.dumps(out[f"6x{n}^2"]), flush=True)
         del costs
     return out
 
@@ -148,9 +114,7 @@ def main() -> None:
     sms, smem = gc.card_limits(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {"card": card, "sms": sms, "smem_per_block": smem, "barrier_us": barrier_us(),
-           "exp_rate": exp_rate(sms),
-           "block_sweep": block_sweep(gen, sms, smem), "phase_cycles": phases(gen),
-           "tiers_ms": tiers(gen, sms, smem)}
+           "block_sweep": block_sweep(gen, sms, smem), "tiers_ms": tiers(gen, sms, smem)}
     print(json.dumps(res), flush=True)
 
 

@@ -31,26 +31,23 @@
 //
 // What bounds it on an H100: nothing leaves the SMs inside the loop but the
 // partials and v, so the work is 2 expf per cell per iteration, each one
-// MUFU.EX2 (16 a clock per SM) among ~10 FP32/INT instructions. Alone,
-// expf runs at 10.2 a clock per SM and exp2f, nearly the bare MUFU.EX2, at
-// 15.6 (measure_grid.py). At 6 x 2500^2 x 500 the 3.75e10 expf take 8.97 ms
-// at the MUFU rate (1.98 GHz) and 14.1 ms at expf's own; the bytes (C once,
-// P once) 0.09 ms. The loops reach 5.1-5.6 expf a clock, the other
-// instructions of a cell (loads, add, max, sum) sharing the issue slots.
-// The design spends one expf per element and step and nothing else of note: the row step gives each warp a whole row, read once
-// as float4, with an online (max, sum) rescaled once per 16 values of a lane
-// and summed as a tree; the column step gives each thread a column, walked
-// once in chunks of 16, 8, 4, 2 and 1 rows (no masked slots). The fold loads
-// each thread's share of the (max, sum) pairs at once (8 bytes each), then a
-// warp per column reduces the threads' pairs by shuffles. 1024 threads a
-// block (64 registers a thread). Measured on an H100 at 700 W
-// (measure_grid.py, cycles per iteration at 6 x 2500^2): row step 8.5k,
-// column step 9.3k, fold 5.0k, the two barriers 2.0k each (a barrier alone
-// is 1.14 us), v load 0.8k: 13.8 us an iteration, 41 ms a match (kernel 1's
-// path: 114 ms). Splitting rows or columns over more warps and threads, 16
-// or 24 warps a block, 16-byte loads of u, and v passed in words tagged
-// with their iteration instead of the second barrier were each slower or
-// no faster.
+// MUFU.EX2 (16 a clock per SM) among ~10 FP32/INT instructions. At 6 x
+// 2500^2 x 500 the 3.75e10 expf take 8.97 ms at the MUFU rate (1.98 GHz);
+// the bytes (C once, P once) 0.09 ms. The design spends one expf per element
+// and step and nothing else of note: the row step gives each warp a whole
+// row, read once as float4, with an online (max, sum) rescaled once per 16
+// values of a lane and summed as a tree; the column step gives each thread a
+// column, walked once in chunks of 16, 8, 4, 2 and 1 rows (no masked slots).
+// The fold loads each thread's share of the (max, sum) pairs at once (8 bytes
+// each), then a warp per column reduces the threads' pairs by shuffles. 1024
+// threads a block (64 registers a thread). On an H100 at 700 W an iteration
+// at 6 x 2500^2 takes 13.8 us and a match 41 ms (kernel 1's path: 114 ms);
+// the row and column steps take about two thirds of an iteration, the fold
+// and the two barriers the rest (a barrier alone is 1.14 us,
+// otgan_grid_barrier_loop; PERF.md has the breakdown). Splitting rows or
+// columns over more warps and threads, 16 or 24 warps a block, 16-byte loads
+// of u, and v passed in words tagged with their iteration instead of the
+// second barrier were each slower or no faster.
 //
 // Numerics: expf/logf, never the fast-math intrinsics. A max starts at -inf
 // with a sum of 0, and a -inf partial contributes nothing. Ragged n and m are
@@ -76,7 +73,6 @@ constexpr size_t kMaxSmem = 232448;       // 227 KB a block on sm_90
 constexpr int kErrNotResident = 100002;   // the grid's blocks cannot all be resident
 constexpr int kRowChunk = 4;              // float4 a lane per online step of the row step
 constexpr int kFoldRegs = 8;              // partials a thread loads at once in the fold
-constexpr int kPhases = 8;                // phases the profiled kernel times
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
@@ -162,28 +158,13 @@ __device__ __forceinline__ void combine(float pm, float ps, float& mx, float& s)
 // Grid (G, groups), kThreads threads: block (blockIdx.x, blockIdx.y) owns rows
 // [blockIdx.x * band, + band) of matrices blockIdx.y, blockIdx.y + groups, ...
 // Scratch: part (groups, G, m) of (max, sum) pairs, 8-byte aligned; v_glob
-// (groups, round4(m)), 16-byte aligned; ent_part (b, G). With kProfile, each phase ends in a block barrier
-// and thread 0 adds its clock64 cycles to prof[(blockIdx.y * G + blockIdx.x)
-// * kPhases + phase]: load, row step, column step, barrier A, fold, barrier
-// B, v load, epilogue.
-template <bool kProfile>
+// (groups, round4(m)), 16-byte aligned; ent_part (b, G).
 __global__ void __launch_bounds__(kThreads, 1)
 grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
               float* __restrict__ ent_out, float2* __restrict__ part,
-              float* __restrict__ v_glob,
-              float* __restrict__ ent_part, int b, int n, int m, int band, float lam,
-              int n_iters, int vec_ok, long long* __restrict__ prof) {
+              float* __restrict__ v_glob, float* __restrict__ ent_part, int b, int n, int m,
+              int band, float lam, int n_iters, int vec_ok) {
   cg::grid_group grid = cg::this_grid();
-  long long acc[kPhases] = {};
-  long long t_last = kProfile ? clock64() : 0;
-  auto stamp = [&](int phase) {
-    if constexpr (kProfile) {
-      __syncthreads();
-      const long long t = clock64();
-      acc[phase] += t - t_last;
-      t_last = t;
-    }
-  };
   extern __shared__ __align__(16) float smem[];
   const int ldm = round4(m);
   constexpr int threads = kThreads;
@@ -250,7 +231,6 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
     }
     for (int j = tid; j < ldm; j += threads) v[j] = 0.f;
     __syncthreads();
-    stamp(0);
 
     // 2. the loop
     const float4* v4 = reinterpret_cast<const float4*>(v);
@@ -285,7 +265,6 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
         if (lane == 0) u[r] = -(mw + logf(s));
       }
       __syncthreads();
-      stamp(1);
 
       // column step: a thread per column walks the band's rows once
       float2* po = part_g + (size_t)blk * m;
@@ -294,9 +273,7 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
         walk_column(xs, u, ldm, j, rows, mx, s);
         __stcg(po + j, make_float2(mx, s));
       }
-      stamp(2);
       grid.sync();  // every block's partials are in L2
-      stamp(3);
 
       // fold: this block's slice of columns over the G partials
       for (int jc = 0; jc < cn; jc += threads) {
@@ -342,9 +319,7 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
         }
         __syncthreads();
       }
-      stamp(4);
       grid.sync();  // the whole v is in L2
-      stamp(5);
       for (int j = tid; j < m4; j += threads) {
         float4 t = __ldcg(reinterpret_cast<const float4*>(vg) + j);
         if (4 * j + 1 >= m) t.y = 0.f;  // pad columns of v stay 0
@@ -353,7 +328,6 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
         reinterpret_cast<float4*>(v)[j] = t;
       }
       __syncthreads();
-      stamp(6);
     }
 
     // 3. P = softmax_rows(x + v) and the band's sum of row entropies
@@ -392,12 +366,6 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
       for (int q = 0; q < n_blocks; ++q) t += __ldcg(ent_part + (size_t)mat * n_blocks + q);
       ent_out[mat] = t / (float)n;
     }
-    stamp(7);
-  }
-  if constexpr (kProfile) {
-    if (tid == 0) {
-      for (int k = 0; k < kPhases; ++k) prof[((size_t)grp * n_blocks + blk) * kPhases + k] = acc[k];
-    }
   }
 }
 
@@ -405,24 +373,6 @@ grid_sinkhorn(const float* __restrict__ cost, float* __restrict__ p_out,
 __global__ void grid_barrier_loop(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
-}
-
-// 8 independent chains of n expf (kExp2: exp2f, nearly one MUFU.EX2 each)
-// a thread and nothing else: the rate the loops' exponential can reach
-// alone, measured.
-template <bool kExp2>
-__global__ void __launch_bounds__(kThreads, 1) exp_rate_loop(float* out, int n) {
-  float a[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) a[k] = -0.01f * (threadIdx.x % 7 + k);
-  for (int i = 0; i < n; ++i) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) a[k] = kExp2 ? exp2f(a[k] - 1.f) : expf(a[k] - 1.f);
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s += a[k];
-  out[(size_t)blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
 int launch_cooperative(const void* fn, dim3 grid, int threads, size_t smem, void** args,
@@ -467,10 +417,9 @@ int otgan_grid_device_limits(int* sm_count, int* smem_per_block) {
 // blocks a matrix, `groups` matrices at once. Returns 0, a cudaError_t
 // (cudaErrorInvalidValue for a shape or plan whose band does not fit), or
 // kErrNotResident when the card cannot hold blocks x groups blocks at once.
-// A non-null `prof` (groups x blocks x 8 int64) runs the profiled kernel.
 int otgan_grid_sinkhorn(const float* cost, float* p, float* ent, float* part, float* v_glob,
-                        float* ent_part, int b, int n, int m, int blocks,
-                        int groups, float lam, int n_iters, void* stream_ptr, long long* prof) {
+                        float* ent_part, int b, int n, int m, int blocks, int groups, float lam,
+                        int n_iters, void* stream_ptr) {
   if (b < 1 || n < 1 || m < 1 || n_iters < 0 || blocks < 1 || groups < 1 || groups > b ||
       blocks > 65535 || groups > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -480,9 +429,9 @@ int otgan_grid_sinkhorn(const float* cost, float* p, float* ent, float* part, fl
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   int vec_ok = (m % 4 == 0 && reinterpret_cast<uintptr_t>(cost) % 16 == 0) ? 1 : 0;
   void* args[] = {&cost, &p, &ent, &part, &v_glob, &ent_part, &b, &n, &m,
-                  &band, &lam, &n_iters, &vec_ok, &prof};
-  const void* fn = prof ? (const void*)grid_sinkhorn<true> : (const void*)grid_sinkhorn<false>;
-  return launch_cooperative(fn, dim3(blocks, groups, 1), kThreads, smem, args, stream_ptr);
+                  &band, &lam, &n_iters, &vec_ok};
+  return launch_cooperative((const void*)grid_sinkhorn, dim3(blocks, groups, 1), kThreads, smem,
+                            args, stream_ptr);
 }
 
 // `n` grid barriers on `blocks` blocks of `threads` threads, cooperative.
@@ -493,19 +442,6 @@ int otgan_grid_barrier_loop(int blocks, int threads, int n, void* stream_ptr) {
   void* args[] = {&n};
   return launch_cooperative((const void*)grid_barrier_loop, dim3(blocks, 1, 1), threads, 0, args,
                             stream_ptr);
-}
-
-// exp_rate_loop on `blocks` blocks of kThreads threads: 8 * n exponentials
-// a thread into out (blocks x kThreads floats).
-int otgan_grid_exp_rate_loop(int exp2, float* out, int blocks, int n, void* stream_ptr) {
-  if (blocks < 1 || n < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (exp2) {
-    exp_rate_loop<true><<<blocks, kThreads, 0, stream>>>(out, n);
-  } else {
-    exp_rate_loop<false><<<blocks, kThreads, 0, stream>>>(out, n);
-  }
-  return (int)cudaGetLastError();
 }
 
 const char* otgan_grid_error_string(int err) {

@@ -104,13 +104,15 @@ def sinkhorn_log_tol(neg_lam_cost: torch.Tensor, max_iters: int, tol: float):
 def kernel_tier(n: int, m: int, limits: Tuple[int, int]) -> str:
     """The CUDA kernel that runs an ``(n, m)`` matrix on a card of
     ``limits`` (SM count, shared memory a block may use): ``"resident"``,
-    ``"grid"`` or ``"tiled"`` (the column-potential kernel)."""
-    from otgan_tpu_torch.ops.sinkhorn_grid_cuda import grid_plan
+    ``"grid"`` or ``"tiled"`` (the column-potential kernel). The resident
+    kernel's own check stays: a matrix of few cells can still be too wide
+    for its band, v and partials, e.g. (4, 16384)."""
+    from otgan_tpu_torch.ops.sinkhorn_grid_cuda import grid_supported
     from otgan_tpu_torch.ops.sinkhorn_resident_cuda import resident_supported
 
     if n * m <= RESIDENT_TIER_CELLS and resident_supported(n, m):
         return "resident"
-    if grid_plan(n, m, *limits) is not None:
+    if grid_supported(n, m, limits):
         return "grid"
     return "tiled"
 
@@ -129,8 +131,8 @@ def sinkhorn_assignment(
     feature tensors, so the cost is detached here. ``tol > 0`` takes the
     early-exit loop (a dynamic trip count the fixed-count kernels do not
     run); otherwise ``use_pallas`` selects a CUDA kernel by the matrix
-    shape (:func:`kernel_tier`); for a tensor on the CPU each tier runs its
-    plain version, planned with an H100's limits.
+    shape (:func:`kernel_tier`) and the card's limits; for a tensor on the
+    CPU each tier runs its plain version, chosen as on an H100.
     """
     cost = cost.detach()
     if tol > 0.0:
@@ -138,10 +140,11 @@ def sinkhorn_assignment(
         return assignment_and_entropy(log_a)
     if use_pallas:
         from otgan_tpu_torch.ops.sinkhorn_cuda import sinkhorn_assignment_kernel
-        from otgan_tpu_torch.ops.sinkhorn_grid_cuda import card_limits, sinkhorn_grid
+        from otgan_tpu_torch.ops.sinkhorn_grid_cuda import H100_LIMITS, card_limits, sinkhorn_grid
         from otgan_tpu_torch.ops.sinkhorn_resident_cuda import sinkhorn_resident
 
-        tier = kernel_tier(*cost.shape[-2:], card_limits(cost.device))
+        limits = card_limits(cost.device) if cost.is_cuda else H100_LIMITS
+        tier = kernel_tier(*cost.shape[-2:], limits)
         if tier == "resident":
             return sinkhorn_resident(cost, lam, n_iters)
         if tier == "grid":

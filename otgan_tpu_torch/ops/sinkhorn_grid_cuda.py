@@ -34,8 +34,8 @@ import torch
 from otgan_tpu_torch.ops.sinkhorn_resident_cuda import sinkhorn_resident_plain
 
 # an H100 SXM's SM count and the shared memory a block may use on sm_90:
-# the plan's limits for a tensor off the card (the CPU tests, and the tier a
-# CPU run reports)
+# grid_plan's default, so a tensor off the card is planned (and counted) as
+# on an H100
 H100_LIMITS = (132, 232448)
 # threads a block (csrc/sinkhorn_grid.cu, which checks the plan again and
 # refuses what does not fit)
@@ -110,23 +110,14 @@ def _card_limits(index: int) -> Tuple[int, int]:
 
 
 def card_limits(device: torch.device) -> Tuple[int, int]:
-    """``(SM count, shared memory a block may use)``: the card's own for a
-    CUDA device, an H100's for any other."""
-    if device.type != "cuda":
-        return H100_LIMITS
+    """``(SM count, shared memory a block may use)`` of a CUDA device, from
+    the kernel's own query."""
     return _card_limits(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def grid_supported(n: int, m: int, limits: Tuple[int, int] = H100_LIMITS) -> bool:
     """The kernel holds an ``(n, m)`` matrix on a card of these limits."""
     return grid_plan(n, m, *limits) is not None
-
-
-def sinkhorn_grid_plain(cost: torch.Tensor, lam: float, n_iters: int):
-    """Eager-torch version of the kernel: cost ``(b, N, M)`` -> (P, entropy
-    ``(b,)``), from the same row-shifted logits; the same function as the
-    resident kernel's."""
-    return sinkhorn_resident_plain(cost, lam, n_iters)
 
 
 @functools.cache
@@ -136,15 +127,12 @@ def _bind():
     lib = load("sinkhorn_grid")
     fn = lib.otgan_grid_sinkhorn
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.otgan_grid_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.otgan_grid_device_limits.restype = ctypes.c_int
     lib.otgan_grid_barrier_loop.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.otgan_grid_barrier_loop.restype = ctypes.c_int
-    lib.otgan_grid_exp_rate_loop.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    lib.otgan_grid_exp_rate_loop.restype = ctypes.c_int
     lib.otgan_grid_error_string.argtypes = [ctypes.c_int]
     lib.otgan_grid_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,15 +144,6 @@ def sinkhorn_grid_cuda(cost: torch.Tensor, lam: float, n_iters: int,
     card; returns (P ``(b, N, M)``, entropy ``(b,)``). ``blocks`` overrides
     the planned blocks per matrix (a measurement sweeps it). Raises on a
     shape the card cannot hold and on a refused launch."""
-    out = _launch(cost, lam, n_iters, blocks, None)
-    launches["kernel"] += 1
-    return out
-
-
-def _launch(cost: torch.Tensor, lam: float, n_iters: int, blocks: Optional[int],
-            prof: Optional[torch.Tensor]):
-    """The launch behind :func:`sinkhorn_grid_cuda`; a ``prof`` tensor (see
-    :func:`grid_phase_cycles`) runs the profiled build of the kernel."""
     if not (cost.is_cuda and cost.dtype == torch.float32 and cost.dim() == 3
             and cost.is_contiguous()):
         raise ValueError(
@@ -190,38 +169,14 @@ def _launch(cost: torch.Tensor, lam: float, n_iters: int, blocks: Optional[int],
         err = lib.otgan_grid_sinkhorn(cost.data_ptr(), p.data_ptr(), ent.data_ptr(),
                                       part.data_ptr(), v_glob.data_ptr(),
                                       ent_part.data_ptr(), b, n, m, n_blocks, groups, lam,
-                                      n_iters, stream, None if prof is None else prof.data_ptr())
+                                      n_iters, stream)
     if err != 0:
         msg = lib.otgan_grid_error_string(err).decode()
         raise RuntimeError(f"grid Sinkhorn CUDA kernel failed at {tuple(cost.shape)}, plan "
                            f"{n_blocks} blocks of {band} rows, {groups} matrices at once: "
                            f"{msg} ({err})")
+    launches["kernel"] += 1
     return p, ent
-
-
-PHASES = ("load", "row_step", "column_step", "barrier_a", "fold", "barrier_b", "v_load",
-          "epilogue")
-
-
-def grid_phase_cycles(cost: torch.Tensor, lam: float, n_iters: int,
-                      blocks: Optional[int] = None) -> dict:
-    """One launch of the profiled kernel, whose phases each end in a block
-    barrier: per phase of ``PHASES``, the SM cycles (``clock64``) thread 0
-    spent in it, the mean and the max over the blocks; for the phases of
-    the loop per iteration and matrix a block walks, for the others per
-    launch."""
-    b, n, m = cost.shape
-    sms, smem = card_limits(cost.device)
-    n_blocks = grid_plan(n, m, sms, smem, blocks, batch=b)[0]
-    groups = grid_groups(n_blocks, b, sms)
-    prof = torch.zeros((groups * n_blocks, len(PHASES)), device=cost.device, dtype=torch.int64)
-    _launch(cost, lam, n_iters, blocks, prof)
-    c = prof.double().cpu()
-    walks = -(-b // groups) * max(n_iters, 1)
-    return {ph: {"mean": float(c[:, k].mean()) / (walks if loop else 1),
-                 "max": float(c[:, k].max()) / (walks if loop else 1),
-                 "per": "iteration" if loop else "launch"}
-            for k, ph in enumerate(PHASES) for loop in [0 < k < len(PHASES) - 1]}
 
 
 def barrier_loop_cuda(blocks: int, threads: int, n: int) -> None:
@@ -234,25 +189,12 @@ def barrier_loop_cuda(blocks: int, threads: int, n: int) -> None:
                            f"{lib.otgan_grid_error_string(err).decode()} ({err})")
 
 
-def exp_rate_loop_cuda(exp2: bool, blocks: int, n: int) -> int:
-    """``8 n`` ``expf`` (``exp2f`` with ``exp2``) per thread on ``blocks``
-    blocks of ``THREADS`` threads, on the current stream, and nothing else:
-    the rate the exponential reaches alone, for measurements. Returns the
-    count of exponentials."""
-    lib = _bind()
-    out = torch.empty((blocks * THREADS,), device="cuda", dtype=torch.float32)
-    err = lib.otgan_grid_exp_rate_loop(int(exp2), out.data_ptr(), blocks, n,
-                                       torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"exp rate loop failed: {lib.otgan_grid_error_string(err).decode()}")
-    return 8 * n * blocks * THREADS
-
-
 @torch.no_grad()
 def sinkhorn_grid(cost: torch.Tensor, lam: float, n_iters: int):
     """Cost ``(..., N, M)`` -> (P ``(..., N, M)``, entropy ``(...)``): the
     CUDA kernel for a tensor on the card, the plain version for one on the
-    CPU."""
+    CPU (``sinkhorn_resident_plain``: the resident kernel computes the same
+    function from the same row-shifted logits)."""
     n, m = cost.shape[-2:]
     batch_shape = cost.shape[:-2]
     c = cost.detach().float().reshape(-1, n, m)
@@ -260,7 +202,7 @@ def sinkhorn_grid(cost: torch.Tensor, lam: float, n_iters: int):
         p, ent = sinkhorn_grid_cuda(c.contiguous(), lam, n_iters)
     elif c.device.type == "cpu":
         launches["plain"] += 1
-        p, ent = sinkhorn_grid_plain(c, lam, n_iters)
+        p, ent = sinkhorn_resident_plain(c, lam, n_iters)
     else:
         raise ValueError(f"no Sinkhorn kernel for device {cost.device}")
     return p.reshape(cost.shape), ent.reshape(batch_shape)

@@ -3,9 +3,9 @@ ranks (counterpart of ``otgan_tpu/parallel/matching_matrix.py``; the
 reference's own layout, ``utils/matching.py:49``).
 
 Rank k owns the matrices ``m = (k + r K) % n_mats`` for ``r < ceil(n_mats /
-K)`` and solves each whole through the single-device Sinkhorn path (the
-CUDA column-potential kernel of ``ops/sinkhorn_cuda.py`` on the card), with
-no collective per iteration. Each rank adds its matched-feature products,
+K)`` and solves each whole through the single-device Sinkhorn path (on the
+card the CUDA kernel ``sinkhorn_assignment`` picks by shape: the grid
+kernel at the reference batch's 2500^2), with no collective per iteration. Each rank adds its matched-feature products,
 weighted by ``1 / count`` for a matrix with several owners, into a
 ``(B, 4, d)`` accumulator that one reduce-scatter sums and cuts to local
 rows; the entropy is one scalar all-reduce. The features are gathered once

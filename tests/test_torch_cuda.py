@@ -254,7 +254,7 @@ def test_grid_kernel_matches_plain(cuda_device, shape, blocks):
     torch.cuda.synchronize()
     assert sinkhorn_grid_cuda.launches == {"kernel": before["kernel"] + 1,
                                            "plain": before["plain"]}
-    p_ref, e_ref = sinkhorn_grid_cuda.sinkhorn_grid_plain(costs, 500.0, iters)
+    p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 500.0, iters)
     assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(e).all())
     torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
     torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
@@ -270,7 +270,7 @@ def test_grid_zero_iterations_and_ragged_width(cuda_device):
     p0, _ = sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 50.0, 0)
     torch.testing.assert_close(p0, torch.softmax(-50.0 * costs, dim=-1), atol=1e-6, rtol=0)
     p, e = sinkhorn_grid_cuda.sinkhorn_grid_cuda(costs, 50.0, 100)
-    p_ref, e_ref = sinkhorn_grid_cuda.sinkhorn_grid_plain(costs, 50.0, 100)
+    p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 50.0, 100)
     torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
     torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
 

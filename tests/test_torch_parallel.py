@@ -178,6 +178,24 @@ def test_matrix_parallel_matches_jax_and_global(world4, single):
     _check(got, [t.numpy() for t in m[:4]] + [float(m.entropy)], 1e-5, 1e-6)
 
 
+def test_matrix_parallel_takes_the_grid_tier(world4):
+    """Whole 300^2 matrices, above the resident tier, on 4 ranks: each rank
+    solves 2 of the 6 (8 slots, matrices 0 and 1 twice), each through the
+    grid tier's plain version and no other tier, and the outputs are the
+    global matcher's."""
+    B = 600
+    fa, fb = _features(11, B), _features(12, B)
+    res = world4.run("matrix_matcher", fa=fa, fb=fb, lam=50.0, iters=20)
+    rounds, _ = matching_matrix._owner_counts(6, 4)
+    assert rounds == 2
+    for launches in (r[1] for r in res):
+        assert launches["grid_plain"] == rounds
+        assert sum(launches.values()) == rounds, launches
+    m = matching.match_two_batch(torch.from_numpy(fa), torch.from_numpy(fb), 50.0, 20,
+                                 use_pallas=True)
+    _check(_gather(res), [t.numpy() for t in m[:4]] + [float(m.entropy)], 1e-5, 1e-6)
+
+
 def _plain_tree(x):
     """A JAX state after ``device_get`` as dicts of numpy arrays."""
     if hasattr(x, "_fields"):
@@ -319,5 +337,6 @@ def test_torchrun_cli_two_ranks_rows(tmp_path):
         "row-sharded (two-batch, whole local halves on the 2-device mesh)")
     assert [r["launches"] for r in recs if "epoch" in r] == [
         {"col_potential": 0, "col_potential_plain": 0, "resident": 0, "resident_plain": 0,
-         "grid": 0, "grid_plain": 0, "local_step_fused": 0, "local_step_stream": 0, "local_step_plain": 5 * steps}
+         "grid": 0, "grid_plain": 0, "local_step_fused": 0, "local_step_stream": 0,
+         "local_step_plain": 5 * steps}
         for steps in (1, 2)]

@@ -129,12 +129,23 @@ def rows_matcher(rank, size, fa, fb, lam, iters, single=False, tol=0.0, batch=No
 
 
 def matrix_matcher(rank, size, fa, fb, lam, iters, single=False):
+    """This rank's outputs of the matrix-parallel matcher (kernel path) and
+    the launches of its Sinkhorn tiers (``train.kernel_launches``)."""
+    from otgan_tpu_torch import train
+    from otgan_tpu_torch.ops import (
+        sinkhorn_cuda,
+        sinkhorn_grid_cuda,
+        sinkhorn_resident_cuda,
+        sinkhorn_step_cuda,
+    )
     from otgan_tpu_torch.parallel import matching_matrix as mm
 
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+        mod.reset_launch_counts()
     make = (mm.make_matrix_parallel_single_batch_matcher if single
             else mm.make_matrix_parallel_two_batch_matcher)
-    return _np(make(None, lam, iters, use_pallas=True)(_block(fa, rank, size),
-                                                        _block(fb, rank, size)))
+    m = make(None, lam, iters, use_pallas=True)(_block(fa, rank, size), _block(fb, rank, size))
+    return _np(m), train.kernel_launches()
 
 
 def engine_step(rank, size, cfg, state_path, x_init, x, z, kind):

@@ -93,7 +93,8 @@ def test_kernel_tier_by_shape():
     """resident / grid / kernel 1 at the DCGAN's batch 256, the reference
     batch 5000 and batch 8000, on an H100's limits; the measured boundary
     between the first two (the toy's 256^2 resident, 384^2 and up grid);
-    on a card of half the SMs 2500^2 no longer fits and goes to kernel 1."""
+    on a card of half the SMs 2500^2 no longer fits and goes to kernel 1;
+    a matrix of few cells too wide for the resident kernel goes on."""
     assert kernel_tier(128, 128, H100) == "resident"
     assert kernel_tier(2500, 2500, H100) == "grid"
     assert kernel_tier(4000, 4000, H100) == "tiled"
@@ -101,6 +102,7 @@ def test_kernel_tier_by_shape():
     assert kernel_tier(384, 384, H100) == "grid"
     assert kernel_tier(768, 768, H100) == "grid"
     assert kernel_tier(2500, 2500, (66, H100[1])) == "tiled"
+    assert kernel_tier(4, 16384, H100) == "grid" and not rc.resident_supported(4, 16384)
 
 
 @pytest.mark.parametrize("n,m", [(64, 128), (136, 256)])
@@ -111,7 +113,7 @@ def test_plain_matches_jax_col_potential(n, m):
     x = -50.0 * costs
     v = np.asarray(_col_potential(jnp.asarray(x[0]), 30, interpret=True))
     p_ref, e_ref = assignment_and_entropy(torch.from_numpy(x + v[:, None, :]))
-    p, e = gc.sinkhorn_grid_plain(torch.from_numpy(costs), 50.0, 30)
+    p, e = rc.sinkhorn_resident_plain(torch.from_numpy(costs), 50.0, 30)
     torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
     torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
 
@@ -156,7 +158,7 @@ def test_plain_diagonal_lam500_matches_jax_and_oracle():
 @pytest.mark.parametrize("seed,n,m,iters", [(21, 48, 48, 200), (5, 200, 200, 300)])
 def test_plain_matches_float64_oracle_lam500(seed, n, m, iters):
     costs = _costs(seed, 2, n, m, d=512)
-    p, e = gc.sinkhorn_grid_plain(torch.from_numpy(costs), 500.0, iters)
+    p, e = rc.sinkhorn_resident_plain(torch.from_numpy(costs), 500.0, iters)
     for i in range(2):
         p_ref, e_ref = sinkhorn_np(costs[i], 500.0, iters)
         np.testing.assert_allclose(p[i].numpy(), p_ref, atol=1e-5)
@@ -171,7 +173,7 @@ def test_wrapper_counts_plain_on_cpu_and_raises_elsewhere():
     costs = torch.from_numpy(_costs(7, 2, 16, 24))
     p, e = gc.sinkhorn_grid(costs, 50.0, 3)
     assert gc.launches == {"kernel": 0, "plain": 1}
-    p_ref, e_ref = gc.sinkhorn_grid_plain(costs, 50.0, 3)
+    p_ref, e_ref = rc.sinkhorn_resident_plain(costs, 50.0, 3)
     torch.testing.assert_close(p, p_ref, atol=0, rtol=0)
     with pytest.raises(ValueError, match="CUDA"):
         gc.sinkhorn_grid_cuda(costs, 50.0, 3)
