@@ -25,15 +25,18 @@ Run from the root of a checkout, it
    global batch 5000, bf16 model compute), with every launch counter set
    to 0 just before and read just after: the grid kernel must have
    launched once a step and nothing else, no plain version;
-5. holds the row-sharded matcher's two local-step kernels (fused and
-   stream tiers) against their plain version, at the row blocks one rank
-   holds in a multi-GPU run: (6, 313, 2500) (batch 5000 on 8 GPUs), (6,
+5. holds the row-sharded matcher's local-step kernel, under both tiers
+   (fused and stream, one kernel that both launch), against its plain version,
+   at the row blocks one rank holds in a multi-GPU run: (6, 313, 2500)
+   (batch 5000 on 8 GPUs), (6, 500, 2000) (batch 4000 on 4 GPUs), (6,
    1000, 4000) (batch 8000 on 4 GPUs) and a ragged (6, 100, 228): one step
    (m within 1e-6, s within 1e-5 relative), then 500 iterations of the
    whole matrix split into those blocks, the ranks' all-reduces done in
    torch (P within 1e-5, entropy within 1e-4); the stream tier also on so
-   few blocks that each walks several panels, and one stream step on the
-   whole (6, 4000, 4000) on its default grid (2 panels a block);
+   few blocks that each walks many ring stages, and one stream step on the
+   whole (6, 4000, 4000) on its default plan; then times each tier at
+   every block, one stream step on the whole (6, 4000, 4000), and counts
+   the device kernels of one step under ``torch.profiler``;
 6. drives the multi-GPU matcher path in a one-process NCCL group: the
    row-sharded two-batch matcher at d 32768, lam 500, 500 iterations, at
    batch 2000 (block (6, 1000, 1000), fused tier) and batch 8000 (block
@@ -428,10 +431,11 @@ def step_ok(res: dict) -> bool:
 def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
     """Both local-step tiers against the plain version at the row blocks of
     ``x`` over ``n_blocks`` ranks: one step, then ITERS iterations. The
-    stream tier also runs on so few blocks that each walks about four
-    16-row panels (``stream_walk``), so the online rescale of its column
-    accumulators runs; with ``whole``, one stream step on the whole of
-    ``x`` on its default grid is held too (the block of a group of one)."""
+    stream tier also runs on so few blocks that each walks about 64 rows
+    (``stream_walk``), so its ring wraps and the online rescale of its
+    column accumulators runs; with ``whole``, one stream step on the whole
+    of ``x`` on its default plan is held too (the block of a group of
+    one)."""
     import torch
     from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy
 
@@ -439,7 +443,7 @@ def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
     p_ref, e_ref = assignment_and_entropy(x + v_ref[:, None, :])
     rows = -(-x.shape[1] // n_blocks)
     blk = x[:, :rows].contiguous()
-    walk = max(1, -(-rows // 16) // 4)  # blocks per matrix of stream_walk
+    walk = max(1, -(-rows // 64))  # blocks per matrix of stream_walk
     out = {}
     for name, mode, n_ctas in (("fused", "fused", None), ("stream", "stream", None),
                                ("stream_walk", "stream", walk)):
@@ -470,16 +474,35 @@ def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
     return out
 
 
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches, from
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def time_local_step(blk, mode: str, bw: float, flops: float, exp_rate: float) -> dict:
     """One step, ITERS steps with the v update between, and the plain step,
-    at the rank's block ``blk``; the bounds of a step and of ITERS steps."""
+    at the rank's block ``blk``; the bounds of a step and of ITERS steps;
+    the device kernels of one step (raises unless exactly one)."""
     import torch
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
 
     b, n, m = blk.shape
     step = st.make_local_step(blk, mode=mode)
-    plain = st.make_local_step(blk, use_kernel=False)
     v0 = torch.zeros((b, m), device="cuda")
+    names = device_kernels(lambda: step(v0))
+    if len(names) != 1:
+        raise AssertionError(f"one {mode} step at {tuple(blk.shape)} launched {names}")
+    plain = st.make_local_step(blk, use_kernel=False)
 
     def loop():
         v = v0
@@ -496,6 +519,8 @@ def time_local_step(blk, mode: str, bw: float, flops: float, exp_rate: float) ->
         "ms_per_500_steps": cuda_ms(loop, reps=3),
         "bound_ms_per_500_steps": over_iters["bound_ms"],
         "bound_by_per_500_steps": over_iters["bound_by"],
+        "launches_per_step": len(names),
+        "plan": step.plan._asdict(),
         "shape": [b, n, m],
     }
 
@@ -929,31 +954,41 @@ def main() -> int:
     x5000 = sk.scaled_logits(costs, LAM)  # batch 5000: (6, 2500, 2500)
     del costs
     held = {"b5000_8gpu": hold_local_step(x5000, 8, "batch 5000 on 8 GPUs")}
-    rank_fused = x5000[:, :313].contiguous()
+    rank_b5000 = x5000[:, :313].contiguous()
     del x5000
+    costs = two_batch_costs(unit_features(gen, 4000, 32768), unit_features(gen, 4000, 32768))
+    x4000 = sk.scaled_logits(costs, LAM)  # batch 4000: (6, 2000, 2000)
+    del costs
+    held["b4000_4gpu"] = hold_local_step(x4000, 4, "batch 4000 on 4 GPUs")
+    rank_fused = x4000[:, :500].contiguous()
+    del x4000
     costs = two_batch_costs(unit_features(gen, 8000, 32768), unit_features(gen, 8000, 32768))
     x8000 = sk.scaled_logits(costs, LAM)  # batch 8000: (6, 4000, 4000)
     del costs
     held["b8000_4gpu"] = hold_local_step(x8000, 4, "batch 8000 on 4 GPUs", whole=True)
     rank_stream = x8000[:, :1000].contiguous()
-    del x8000
     held["ragged"] = hold_local_step(ragged_x, 3, "ragged")
-    if (st.local_step_mode(313, 2500), st.local_step_mode(1000, 4000)) != ("fused", "stream"):
-        raise AssertionError("the tier rule no longer picks fused at (313, 2500) "
-                             "and stream at (1000, 4000)")
-    # each tier at both ranks' blocks; a kernel's own numbers are at the
-    # block its tier rule picks it for
+    if [st.local_step_mode(*s) for s in ((313, 2500), (500, 2000), (1000, 4000))] != [
+            "fused", "fused", "stream"]:
+        raise AssertionError("the tier rule no longer picks fused at (313, 2500) and (500, "
+                             "2000) and stream at (1000, 4000)")
+    # each tier at every rank's block, and the stream tier on the whole (6,
+    # 4000, 4000) of a group of one; a tier's own numbers are at the block
+    # its launches come from: (6, 500, 2000) fused, (6, 1000, 4000) stream
+    blocks = {"6x313x2500": rank_b5000, "6x500x2000": rank_fused, "6x1000x4000": rank_stream}
     timing = {mode: {label: time_local_step(blk, mode, bw, flops, exp_rate)
-                     for label, blk in (("6x313x2500", rank_fused),
-                                        ("6x1000x4000", rank_stream))}
+                     for label, blk in blocks.items()}
               for mode in ("fused", "stream")}
+    timing["stream"]["6x4000x4000"] = time_local_step(x8000, "stream", bw, flops, exp_rate)
+    del x8000, blocks
     for mode, by_shape in timing.items():
         for label, t in by_shape.items():
             print(f"local step {mode} at {label} on {card}: {t['ms']:.4f} ms per step "
                   f"(plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
                   f"{t['bound_by']}); {t['ms_per_500_steps']:.3f} ms per {ITERS} steps with "
-                  f"the v update (bound {t['bound_ms_per_500_steps']:.3f} ms)", flush=True)
-    del rank_fused, rank_stream
+                  f"the v update (bound {t['bound_ms_per_500_steps']:.3f} ms); "
+                  f"{t['launches_per_step']} device kernel a step; plan {t['plan']}", flush=True)
+    del rank_b5000, rank_fused, rank_stream
 
     # ---- 6. the row-sharded matcher in a one-process NCCL group ----
     import torch.distributed as dist
@@ -1068,7 +1103,7 @@ def main() -> int:
     no_library = ("no single PyTorch call computes the (m, s) column partials of a "
                   "Sinkhorn row step")
     for mode, line, own, shapes, names in (
-            ("fused", 113, "6x313x2500", ["b5000_8gpu", "ragged"], ["fused"]),
+            ("fused", 113, "6x500x2000", ["b5000_8gpu", "b4000_4gpu", "ragged"], ["fused"]),
             ("stream", 218, "6x1000x4000", ["b8000_4gpu", "ragged"],
              ["stream", "stream_walk", "stream_whole"])):
         kernels.append({

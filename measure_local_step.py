@@ -2,9 +2,11 @@
 """Measures the row-sharded matcher's local-step kernels on one GPU:
 ``python3 measure_local_step.py`` from the root of a checkout.
 
-1. The time of one step of each tier at the row blocks of a multi-GPU run,
-   and of the stream tier at 1, 2, 4, 8 and 16 blocks per SM (the choice
-   of ``sinkhorn_step_cuda.STREAM_CTAS_PER_SM``).
+1. The time of one step at the row blocks of a multi-GPU run and on the
+   whole (6, 4000, 4000) of a group of one, on the default plan
+   (``sinkhorn_step_cuda.step_plan``) and swept over its two choices: the
+   ring's stages (1, 2, 3, 4, 6, 8; each with the most rows a stage that
+   fit; 0, the direct plan) and the blocks a matrix (11, 22, 33, 44, 66 on a 132-SM card).
 2. One row-sharded match at batch 2000 (d 32768, lam 500, 500 iterations)
    in a one-process NCCL group under ``torch.profiler``: the wall time and
    the device time by kernel of that same run, and their ratio, the
@@ -28,8 +30,9 @@ from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
 from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
 
-SHAPES = [(6, 313, 2500), (6, 1000, 1000), (6, 1000, 4000), (6, 4000, 4000)]
-PER_SM = (1, 2, 4, 8, 16)
+SHAPES = [(6, 313, 2500), (6, 500, 2000), (6, 1000, 1000), (6, 1000, 4000), (6, 4000, 4000)]
+STAGES = (0, 1, 2, 3, 4, 6, 8)  # 0: the direct plan
+BLOCKS_PER_SM_SHARE = (0.5, 1, 1.5, 2, 3)  # blocks a matrix, in units of SMs / b
 
 
 def sweep(gen) -> dict:
@@ -40,14 +43,21 @@ def sweep(gen) -> dict:
         x = -25.0 * torch.rand(shape, generator=gen, device="cuda")
         x = (x - x.amax(-1, keepdim=True)).contiguous()
         v = torch.zeros((b, m), device="cuda")
-        fused = st.make_local_step(x, mode="fused")
-        res = {"fused": cuda_ms(lambda: fused(v), 50)}
-        for per_sm in PER_SM:
-            n_ctas = st.stream_ctas(b, n, sms, per_sm)
-            step = st.make_local_step(x, mode="stream", n_ctas=n_ctas)
-            res[f"stream_{per_sm}_per_sm_{n_ctas}_blocks"] = cuda_ms(lambda: step(v), 50)
+        step = st.make_local_step(x, mode="stream")
+        res = {"default": {"plan": step.plan._asdict(), "ms": cuda_ms(lambda: step(v), 50)}}
+        for share in BLOCKS_PER_SM_SHARE:
+            blocks = int(share * (sms // b))
+            for stages in STAGES:
+                if st.step_plan(b, n, m, blocks=blocks, stages=stages) is None:
+                    continue
+                step = st.make_local_step(x, mode="stream", n_ctas=blocks, stages=stages)
+                p = step.plan
+                res[f"{p.blocks}x{p.groups}_blocks_{p.stages}_stages_of_{p.stage_rows}"] = (
+                    cuda_ms(lambda: step(v), 50))
+        best = min((k for k in res if k != "default"), key=res.get)
         out[str(list(shape))] = res
-        print(f"local step at {shape}, ms: {json.dumps(res)}", flush=True)
+        print(f"local step at {shape}: default {json.dumps(res['default'])}; best {best} "
+              f"{res[best]:.4f} ms; all ms {json.dumps(res)}", flush=True)
     return out
 
 

@@ -29,8 +29,9 @@
 // the launch latency dominates. Ragged edges are masked by bounds, so any
 // n, m.
 //
-// Launch (a) and the numerics live in sinkhorn_panel.cuh, shared with the
-// row-sharded matcher's local step (sinkhorn_step.cu).
+// Launch (a) and the numerics live in sinkhorn_panel.cuh. The row-sharded
+// matcher's local step (sinkhorn_step.cu) computes (a)'s contract on a whole
+// row block in one launch.
 
 #include "sinkhorn_panel.cuh"
 

@@ -1,7 +1,5 @@
-// One Sinkhorn row panel on a CUDA block, shared by csrc/sinkhorn.cu (the
-// whole column-potential loop, TPU kernel ops/sinkhorn_pallas_tiled.py) and
-// csrc/sinkhorn_step.cu (one local step of the row-sharded matcher, TPU
-// kernels ops/sinkhorn_pallas_step.py).
+// One Sinkhorn row panel on a CUDA block, for csrc/sinkhorn.cu (the whole
+// column-potential loop, TPU kernel ops/sinkhorn_pallas_tiled.py).
 //
 // A panel is kRows consecutive rows of one (n, m) float32 matrix of
 // pre-scaled logits x = -lam * C, row-major. For those rows,

@@ -1,159 +1,516 @@
-// One local Sinkhorn step of the row-sharded matcher, for sm_90a.
+// One local Sinkhorn step of the row-sharded matcher, for sm_90a: one
+// cooperative launch per step.
 //
 // Replaces the two TPU kernels of otgan_tpu/ops/sinkhorn_pallas_step.py:
 // _local_step_kernel (tier "fused", via fused_local_sinkhorn_step) and
 // _streaming_step_kernel (tier "stream", via streaming_local_sinkhorn_step).
 // Both compute, for a rank's row block x = -lam * C[rows, :] of shape
-// (b, n_loc, m) float32 and the replicated column potential v (b, m),
+// (b, n, m) float32 and the replicated column potential v (b, m),
 //
 //     u_i  = -logsumexp_j(x_ij + v_j)
 //     m_j  = max_i(x_ij + u_i),   s_j = sum_i exp(x_ij + u_i - m_j)
 //
 // the LOCAL column partials (m, s), shape (b, m) each, that the caller
 // combines across ranks (all-reduce MAX of m, SUM of s * exp(m - m_glob)).
-// The row potential u never leaves the kernel. Ragged edges are masked by
-// bounds: the block runs unpadded, with no TPU tile padding.
+// The row potential u never leaves the kernel. The two TPU tiers are one
+// function, so both tiers launch this kernel; ops/sinkhorn_step_cuda.py
+// counts each tier's launches.
 //
-// Each step is two launches:
+// What bounds it: one read of the block from device memory (96 MB at (6,
+// 1000, 4000): 28.7 us at 3.35 TB/s; 18.8 MB at (6, 313, 2500): 5.6 us), and
+// 2 expf per cell (11.5 us at (6, 1000, 4000) at the MUFU rate). The design
+// reads each cell from device memory once and spends one expf on it in each
+// step:
 //
-//   fused:  (a) panel_partials (sinkhorn_panel.cuh), grid (n_panels, b), one
-//           16-row panel per block, partials to a (b, n_panels, m) scratch;
-//   stream: (a) stream_partials, grid (G, b) with G sized to fill the SMs:
-//           each block walks panels c, c + G, ... and keeps a running
-//           (max, rescaled sum) per column in shared memory, the Pallas
-//           kernel's online accumulation, then writes one partial per
-//           block to a (b, G, m) scratch;
-//   both:   (b) combine_step, grid (column blocks, b): folds the partials of
-//           each column into (m_j, s_j).
+//   Plan (ops/sinkhorn_step_cuda.py::step_plan, from the SM count and the
+//   shared memory a block may use): G blocks a matrix (about SMs / b: 22 at
+//   b = 6 on 132 SMs), each owning a band of `band` consecutive rows, which
+//   is one contiguous span of memory; `groups` matrices at once, the rest in
+//   rounds.
 //
-// What bounds it: a step reads its block once from device memory (18.8 MB
-// at (6, 313, 2500), 96 MB at (6, 1000, 4000); 5.6 and 28.7 us at 3.35 TB/s),
-// and each panel three more times from L1/L2. The operations (10 float32
-// per cell) take 0.70 us and 3.6 us at 67 TFLOP/s. At these sizes two
-// launches (~4 us each) and the two all-reduces between steps are of the
-// same order, so this first version keeps the kernels simple; the stream
-// tier's scratch is G x m in place of n_panels x m.
+//   Ring (the "ring" plan, while v, the accumulators and one stage of one
+//   row fit: m up to 14,254 on an H100): thread 0 streams the band into `stages`
+//   shared-memory stages of `rows` rows each with one 1D TMA bulk copy a
+//   stage (cp.async.bulk, completion counted in bytes on an mbarrier), and
+//   refills a stage as soon as it is consumed, so stages - 1 copies are in
+//   flight while one is computed. v is copied into shared memory once a
+//   launch, the column accumulators live there too.
+//
+//   Row step, from the stage: the rows of a stage go to groups of W warps
+//   (W = 16 / rows, at least 1); each thread walks its float4s of
+//   the row with an online (max, sum), rescaled once per 16 values, the
+//   warps' partials meet in shared memory: u for the stage's rows.
+//
+//   Column step, on the same stage: a thread per 4 adjacent columns (float4
+//   loads, 4 chains at once; chunks of 8, 4, 2, 1 rows), or per column where
+//   rows are not 16-byte aligned (chunks of 16, 8, 4, 2, 1), folds the
+//   stage's rows into the columns' running (max, sum): one expf per cell,
+//   one rescale per chunk.
+//
+//   Fold, in the same launch: each block writes its (max, sum) pair per
+//   column to a (b, G, m) float2 scratch (st.global.cg), one grid barrier
+//   (cg::this_grid().sync(): the launch is cooperative, every block is
+//   resident), then each block folds its slice of ceil(m / G) columns over
+//   the G partials in block order (ld.global.cg; deterministic, no float
+//   atomics). A ticket that makes the last-arriving block fold would put a
+//   whole matrix's fold (4000 x 22 pairs) on the one block that finished
+//   last; the barrier spreads it over all G.
+//
+//   Direct (the plan for rows too wide for a ring, e.g. (2, 8, 40000) or
+//   the stream tier's 28,928 columns): the same loops read the band straight
+//   from device memory in stages of `rows` rows (the column step's second
+//   read of a stage hits L2), with v read from device memory and each
+//   block's accumulators kept in its own slot of the scratch.
+//
+// Alignment: a bulk copy needs 16-byte aligned addresses and sizes, so a
+// stage copies the aligned superset of its span (at most 12 bytes either
+// side, inside the tensor's 512-byte allocation granule) and reads from an
+// offset into it. The float4 row step runs where m % 4 == 0 and x and v are
+// 16-byte aligned (vec_ok); otherwise the same loops take scalar loads.
+//
+// Numerics (csrc/sinkhorn_loops.cuh): expf/logf, never the fast-math
+// intrinsics. A max starts at -inf with a sum of 0, and a -inf partial adds
+// nothing. A block that owns no rows writes (-inf, 0).
 
-#include "sinkhorn_panel.cuh"
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "sinkhorn_loops.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// The stream tier's accumulators: 2 floats per column in dynamic shared
-// memory, within the 227 KB (232,448 B) a block can have on sm_90, less room
-// for the static u_s.
-constexpr int kMaxDynamicBytes = 232448 - 1024;
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxStages = 8;
+constexpr int kMaxStageRows = 32;
+constexpr int kBarrierFloats = 2 * kMaxStages;  // kMaxStages mbarriers of 8 bytes
+constexpr size_t kMaxSmem = 232448;             // 227 KB a block on sm_90
+constexpr int kErrNotResident = 100002;         // the grid's blocks cannot all be resident
+constexpr int kFoldRegs = 8;                    // partials a thread loads at once in the fold
 
-__global__ void __launch_bounds__(kThreads)
-stream_partials(const float* __restrict__ x, const float* __restrict__ v,
-                float* __restrict__ m_part, float* __restrict__ s_part,
-                int n, int m, int n_panels, int n_ctas) {
-  extern __shared__ float acc[];  // m_acc[m], then s_acc[m]
-  __shared__ float u_s[kRows];
-  float* m_acc = acc;
-  float* s_acc = acc + m;
-  const int c = blockIdx.x;
-  const int mat = blockIdx.y;
-  const float* vm = v + (size_t)mat * m;
+__host__ __device__ __forceinline__ size_t round_up(size_t x, size_t k) {
+  return (x + k - 1) / k * k;
+}
 
-  // each thread owns columns threadIdx.x + k * kThreads across all panels,
-  // so the accumulators need no synchronisation, only u_s does
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    m_acc[j] = -INFINITY;
-    s_acc[j] = 0.f;
+// Floats of one ring stage: `rows` rows and the slack of the aligned
+// superset, in whole 128-byte lines.
+__host__ __device__ __forceinline__ size_t stage_floats(int rows, int m) {
+  return round_up((size_t)rows * m + 8, 32);
+}
+
+// Shared memory of one block: the mbarriers, then (ring plan) the stages, v
+// and the (max, sum) accumulators, then u, the row step's warp partials and
+// the fold's (max, sum) per thread. ops/sinkhorn_step_cuda.py::smem_bytes
+// plans with the same sum.
+inline size_t smem_bytes(int m, int rows, int stages) {
+  size_t f = kBarrierFloats;
+  if (stages > 0) f += stages * stage_floats(rows, m) + round_up(m, 4) + 2 * (size_t)m;
+  f += round_up(rows, 4) + 2 * (size_t)rows * kWarps + 2 * kThreads;
+  return f * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  for (int p = c; p < n_panels; p += n_ctas) {
-    const int row0 = p * kRows;
-    const int rows = min(kRows, n - row0);
-    const float* xp = x + ((size_t)mat * n + row0) * m;
-    __syncthreads();  // the previous panel's column pass is done with u_s
-    panel_row_potentials(xp, vm, u_s, rows, m);
-    __syncthreads();
-    for (int j = threadIdx.x; j < m; j += kThreads) {
-      float pm = -INFINITY;
-      for (int r = 0; r < rows; ++r) pm = fmaxf(pm, xp[(size_t)r * m + j] + u_s[r]);
-      const float m_old = m_acc[j];
-      const float m_new = fmaxf(m_old, pm);
-      if (m_new == -INFINITY) continue;  // nothing finite seen yet
-      float s = m_old == -INFINITY ? 0.f : s_acc[j] * expf(m_old - m_new);
-      for (int r = 0; r < rows; ++r) s += expf(xp[(size_t)r * m + j] + u_s[r] - m_new);
-      m_acc[j] = m_new;
-      s_acc[j] = s;
+}
+
+// Thread 0: copies `count` floats from src into ring stage `slot` (its
+// aligned superset), counted on the stage's mbarrier.
+__device__ __forceinline__ void issue_stage(float* stage, uint64_t* bar, const float* src,
+                                            size_t count) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = a & ~(uintptr_t)15;
+  const uint32_t bytes = (uint32_t)(((a + 4 * count + 15) & ~(uintptr_t)15) - lo);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(stage)),
+      "l"(lo), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One thread's share of row xr: its float4s (vec) or floats, strided by the
+// T threads of its warp group, into the online (max, sum).
+template <bool kVec>
+__device__ __forceinline__ void row_share(const float* __restrict__ xr,
+                                          const float* __restrict__ vm, int m, int t, int T,
+                                          float& mx, float& s) {
+  if (kVec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* v4 = reinterpret_cast<const float4*>(vm);
+    const int m4 = m / 4;
+    int j = t;
+    for (; j + 3 * T < m4; j += 4 * T) {
+      float y[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 a = x4[j + q * T];
+        const float4 w = v4[j + q * T];
+        y[4 * q] = a.x + w.x;
+        y[4 * q + 1] = a.y + w.y;
+        y[4 * q + 2] = a.z + w.z;
+        y[4 * q + 3] = a.w + w.w;
+      }
+      online_chunk<16>(y, mx, s);
+    }
+    for (; j < m4; j += T) {
+      const float4 a = x4[j];
+      const float4 w = v4[j];
+      const float y[4] = {a.x + w.x, a.y + w.y, a.z + w.z, a.w + w.w};
+      online_chunk<4>(y, mx, s);
+    }
+  } else {
+    int j = t;
+    for (; j + 15 * T < m; j += 16 * T) {
+      float y[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) y[q] = xr[j + q * T] + vm[j + q * T];
+      online_chunk<16>(y, mx, s);
+    }
+    for (; j < m; j += T) {
+      const float y = xr[j] + vm[j];
+      online_chunk<1>(&y, mx, s);
     }
   }
-  float* mp = m_part + ((size_t)mat * n_ctas + c) * m;
-  float* sp = s_part + ((size_t)mat * n_ctas + c) * m;
+}
+
+// Row step of one stage of rk rows (row stride m) starting at xs: u[r] for
+// r < rk. Each row goes to W = kWarps / rows warps (at least 1); red_m and
+// red_s hold rows x W warp partials, which a warp per row combines.
+__device__ __forceinline__ void row_step(const float* __restrict__ xs,
+                                         const float* __restrict__ vm, float* u, float* red_m,
+                                         float* red_s, int rk, int m, int rows, int vec_ok) {
+  const int W = max(1, kWarps / rows);
+  const int rgroups = kWarps / W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp / W, wi = warp % W;
+  for (int r = rg; r < rk && rg < rgroups; r += rgroups) {
+    const float* xr = xs + (size_t)r * m;
+    float mx = -INFINITY, s = 0.f;
+    if (vec_ok) {
+      row_share<true>(xr, vm, m, wi * 32 + lane, W * 32, mx, s);
+    } else {
+      row_share<false>(xr, vm, m, wi * 32 + lane, W * 32, mx, s);
+    }
+    const float mw = warp_max(mx);
+    s = (mx == -INFINITY) ? 0.f : s * expf(mx - mw);
+    s = warp_sum(s);
+    if (lane == 0) {
+      red_m[r * W + wi] = mw;
+      red_s[r * W + wi] = s;
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < rk; r += kWarps) {
+    const float mx = lane < W ? red_m[r * W + lane] : -INFINITY;
+    const float mw = warp_max(mx);
+    float s = (mx == -INFINITY) ? 0.f : red_s[r * W + lane] * expf(mx - mw);
+    s = warp_sum(s);
+    if (lane == 0) u[r] = -(mw + logf(s));
+  }
+  __syncthreads();
+}
+
+// Column step over rows [r0, r0 + R) for the 4 columns of the float4 x4[0]
+// (row stride m4 float4s): 4 independent running (max, sum).
+template <int R>
+__device__ __forceinline__ void quad_chunk(const float4* __restrict__ x4,
+                                           const float* __restrict__ u, int m4, int r0,
+                                           float* mx, float* s) {
+  float z[4][R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const float4 t = x4[(size_t)(r0 + q) * m4];
+    const float uq = u[r0 + q];
+    z[0][q] = t.x + uq;
+    z[1][q] = t.y + uq;
+    z[2][q] = t.z + uq;
+    z[3][q] = t.w + uq;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) online_chunk<R>(z[k], mx[k], s[k]);
+}
+
+// Column step of one stage of rk rows: a thread per column (scalar), or per
+// 4 adjacent columns (vec_ok: float4 loads, 4 chains at once), folding the
+// rows into the running (max, sum) pairs acc (shared memory on the ring
+// plan, the block's scratch slot otherwise) in chunks of rows.
+template <bool kRing>
+__device__ __forceinline__ void column_step(const float* __restrict__ xs,
+                                            const float* __restrict__ u, float2* acc, int rk,
+                                            int m, int vec_ok) {
+  if (vec_ok) {
+    const int m4 = m / 4;
+    for (int c = threadIdx.x; c < m4; c += kThreads) {
+      float4* a4 = reinterpret_cast<float4*>(acc + 4 * c);
+      const float4 a01 = kRing ? a4[0] : __ldcg(a4);
+      const float4 a23 = kRing ? a4[1] : __ldcg(a4 + 1);
+      float mx[4] = {a01.x, a01.z, a23.x, a23.z};
+      float s[4] = {a01.y, a01.w, a23.y, a23.w};
+      const float4* x4 = reinterpret_cast<const float4*>(xs) + c;
+      int r0 = 0;
+      for (; r0 + 8 <= rk; r0 += 8) quad_chunk<8>(x4, u, m4, r0, mx, s);
+      if (rk - r0 >= 4) quad_chunk<4>(x4, u, m4, r0, mx, s), r0 += 4;
+      if (rk - r0 >= 2) quad_chunk<2>(x4, u, m4, r0, mx, s), r0 += 2;
+      if (rk - r0 >= 1) quad_chunk<1>(x4, u, m4, r0, mx, s);
+      const float4 b01 = make_float4(mx[0], s[0], mx[1], s[1]);
+      const float4 b23 = make_float4(mx[2], s[2], mx[3], s[3]);
+      if (kRing) {
+        a4[0] = b01;
+        a4[1] = b23;
+      } else {
+        __stcg(a4, b01);
+        __stcg(a4 + 1, b23);
+      }
+    }
+    return;
+  }
   for (int j = threadIdx.x; j < m; j += kThreads) {
-    mp[j] = m_acc[j];
-    sp[j] = s_acc[j];
+    float2 a = kRing ? acc[j] : __ldcg(acc + j);
+    walk_column(xs, u, m, j, rk, a.x, a.y);
+    if (kRing) {
+      acc[j] = a;
+    } else {
+      __stcg(acc + j, a);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-combine_step(const float* __restrict__ m_part, const float* __restrict__ s_part,
-             float* __restrict__ m_out, float* __restrict__ s_out, int m,
-             int n_parts) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const int mat = blockIdx.y;
-  if (j >= m) return;
-  float mx, s;
-  fold_partials(m_part, s_part, mat, j, m, n_parts, &mx, &s);
-  m_out[(size_t)mat * m + j] = mx;
-  s_out[(size_t)mat * m + j] = s;
+// Grid (G, groups), kThreads threads, cooperative: block (blockIdx.x,
+// blockIdx.y) owns rows [blockIdx.x * band, + band) of matrices blockIdx.y,
+// blockIdx.y + groups, ... Scratch: part (b, G, m) of (max, sum) pairs.
+// kRing: the band streams through `stages` shared-memory stages of `rows`
+// rows (TMA); otherwise it is read in place, stages of `rows` rows.
+template <bool kRing>
+__global__ void __launch_bounds__(kThreads, 1)
+local_step(const float* __restrict__ x, const float* __restrict__ v, float* __restrict__ m_out,
+           float* __restrict__ s_out, float2* __restrict__ part, int b, int n, int m, int band,
+           int rows, int stages, int vec_ok) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const size_t sf = stage_floats(rows, m);
+  float* ring = smem + kBarrierFloats;
+  float* vs = ring + (kRing ? stages * sf : 0);
+  float2* acc_s = reinterpret_cast<float2*>(vs + (kRing ? round_up(m, 4) : 0));
+  float* u = reinterpret_cast<float*>(acc_s + (kRing ? m : 0));
+  float* red_m = u + round_up(rows, 4);
+  float* red_s = red_m + rows * kWarps;
+  float* fold_m = red_s + rows * kWarps;
+  float* fold_s = fold_m + kThreads;
+
+  const int tid = threadIdx.x;
+  const int n_blocks = gridDim.x, blk = blockIdx.x;
+  const int groups = gridDim.y, grp = blockIdx.y;
+  const int row0 = blk * band;
+  const int own = max(0, min(band, n - row0));  // rows this block owns
+  const int n_stages = (own + rows - 1) / rows;
+  const int slice = (m + n_blocks - 1) / n_blocks;  // this block's columns in the fold
+  const int c0 = blk * slice;
+  const int c1 = min(m, c0 + slice);
+
+  if (kRing) {
+    if (tid == 0) {
+      for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  uint32_t q = 0;  // stages consumed so far: stage q sits in slot q % stages, parity (q / stages) & 1
+
+  for (int mat0 = 0; mat0 < b; mat0 += groups) {
+    const int mat = mat0 + grp;
+    if (mat < b) {
+      const float* xb = x + ((size_t)mat * n + (size_t)min(row0, n)) * m;
+      float2* pb = part + ((size_t)mat * n_blocks + blk) * m;
+      const float* vm = v + (size_t)mat * m;
+      float2* acc = pb;
+      if (kRing) {
+        if (tid == 0) {
+          for (int k = 0; k < min(stages, n_stages); ++k) {
+            const uint32_t slot = (q + k) % stages;
+            issue_stage(ring + slot * sf, &bars[slot], xb + (size_t)k * rows * m,
+                        (size_t)min(rows, own - k * rows) * m);
+          }
+        }
+        for (int j = tid; j < m; j += kThreads) {
+          vs[j] = vm[j];
+          acc_s[j] = make_float2(-INFINITY, 0.f);
+        }
+        vm = vs;
+        acc = acc_s;
+        __syncthreads();
+      } else {
+        for (int j = tid; j < m; j += kThreads) __stcg(acc + j, make_float2(-INFINITY, 0.f));
+      }
+
+      for (int k = 0; k < n_stages; ++k, ++q) {
+        const int rk = min(rows, own - k * rows);
+        const float* src = xb + (size_t)k * rows * m;
+        const float* xs = src;
+        if (kRing) {
+          const uint32_t slot = q % stages;
+          mbar_wait(&bars[slot], (q / stages) & 1);
+          xs = ring + slot * sf + (reinterpret_cast<uintptr_t>(src) & 15) / 4;
+        }
+        row_step(xs, vm, u, red_m, red_s, rk, m, rows, vec_ok);
+        column_step<kRing>(xs, u, acc, rk, m, vec_ok);
+        __syncthreads();  // the stage and u are free
+        if (kRing && tid == 0 && k + stages < n_stages) {
+          const uint32_t slot = q % stages;
+          issue_stage(ring + slot * sf, &bars[slot], xb + (size_t)(k + stages) * rows * m,
+                      (size_t)min(rows, own - (k + stages) * rows) * m);
+        }
+      }
+      if (kRing) {
+        for (int j = tid; j < m; j += kThreads) __stcg(pb + j, acc_s[j]);
+      }
+    }
+    grid.sync();  // every block's partials of this round are in L2
+
+    // fold: this block's slice of columns over the G partials, in a fixed
+    // order: Q = kThreads / cc threads a column, thread q folding partials
+    // q, q + Q, ... (kFoldRegs loads in flight), then a thread per column
+    // folding the Q pairs
+    if (mat < b) {
+      const float2* pm = part + (size_t)mat * n_blocks * m;
+      for (int jc = c0; jc < c1; jc += kThreads) {
+        const int cc = min(c1 - jc, kThreads);
+        const int Q = kThreads / cc;
+        const int qq = tid / cc;
+        if (qq < Q) {
+          const float2* pc = pm + jc + tid % cc;
+          float mx = -INFINITY, s = 0.f;
+          for (int p0 = qq; p0 < n_blocks; p0 += Q * kFoldRegs) {
+            float2 t[kFoldRegs];
+            float cmx = -INFINITY;
+#pragma unroll
+            for (int k = 0; k < kFoldRegs; ++k) {
+              const int p = p0 + k * Q;
+              t[k] = p < n_blocks ? __ldcg(pc + (size_t)p * m) : make_float2(-INFINITY, 0.f);
+              cmx = fmaxf(cmx, t[k].x);
+            }
+            online_rescale(cmx, mx, s);
+#pragma unroll
+            for (int k = 0; k < kFoldRegs; ++k) {
+              if (t[k].x != -INFINITY) s += t[k].y * expf(t[k].x - mx);
+            }
+          }
+          fold_m[tid] = mx;  // tid == qq * cc + column
+          fold_s[tid] = s;
+        }
+        __syncthreads();
+        if (tid < cc) {
+          float mx = fold_m[tid], s = fold_s[tid];
+          for (int g = 1; g < Q; ++g) combine(fold_m[g * cc + tid], fold_s[g * cc + tid], mx, s);
+          m_out[(size_t)mat * m + jc + tid] = mx;
+          s_out[(size_t)mat * m + jc + tid] = s;
+        }
+        __syncthreads();
+      }
+    }
+  }
 }
 
-int combine(const float* m_part, const float* s_part, float* m_out, float* s_out,
-            int b, int m, int n_parts, cudaStream_t stream) {
-  const dim3 grid((m + kThreads - 1) / kThreads, b);
-  combine_step<<<grid, kThreads, 0, stream>>>(m_part, s_part, m_out, s_out, m, n_parts);
-  return (int)cudaGetLastError();
+const void* kernel_for(int stages) {
+  return stages > 0 ? (const void*)local_step<true> : (const void*)local_step<false>;
+}
+
+int check_plan(int b, int n, int m, int blocks, int groups, int band, int rows, int stages) {
+  if (b < 1 || n < 1 || m < 1 || blocks < 1 || blocks > 65535 || groups < 1 || groups > b ||
+      groups > 65535 || band < 1 || (long long)band * blocks < n || rows < 1 ||
+      rows > kMaxStageRows || stages < 0 || stages > kMaxStages ||
+      smem_bytes(m, rows, stages) > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per panel: the wrapper sizes the fused tier's scratch with it.
-int otgan_step_rows_per_panel(void) { return kRows; }
-
-// Widest row block the stream tier takes (its accumulators' shared memory).
-int otgan_step_stream_max_cols(void) { return kMaxDynamicBytes / (2 * (int)sizeof(float)); }
-
-// Tier "fused": x (b, n, m), v (b, m) -> m_out, s_out (b, m), with m_part
-// and s_part (b, ceil(n / kRows), m) as scratch; all float32, allocated by
-// the caller. Returns the first cudaError_t (0 on success).
-int otgan_local_step_fused(const float* x, const float* v, float* m_out, float* s_out,
-                           float* m_part, float* s_part, int b, int n, int m,
-                           void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_panels = (n + kRows - 1) / kRows;
-  panel_partials<<<dim3(n_panels, b), kThreads, 0, stream>>>(x, v, m_part, s_part, n, m,
-                                                              n_panels);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return combine(m_part, s_part, m_out, s_out, b, m, n_panels, stream);
+// Checks a plan on the current device once, before its launches: the shape
+// and plan are valid, the kernel may use the card's shared memory, and the
+// blocks x groups blocks are resident at once (a cooperative launch needs
+// them all). Returns 0, a cudaError_t, or kErrNotResident.
+int otgan_local_step_prepare(int b, int n, int m, int blocks, int groups, int band, int rows,
+                             int stages) {
+  int err = check_plan(b, n, m, blocks, groups, band, rows, stages);
+  if (err != 0) return err;
+  int device = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const size_t smem = smem_bytes(m, rows, stages);
+  if (e == cudaSuccess && smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  // the largest a block may ask for, so that no plan's prepare lowers another's
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel_for(stages), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(stages), kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if ((long long)per_sm * sms < (long long)blocks * groups) return kErrNotResident;
+  return 0;
 }
 
-// Tier "stream": as the fused tier, with n_ctas blocks per matrix and
-// m_part, s_part (b, n_ctas, m) as scratch.
-int otgan_local_step_stream(const float* x, const float* v, float* m_out, float* s_out,
-                            float* m_part, float* s_part, int b, int n, int m, int n_ctas,
-                            void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = 2 * sizeof(float) * (size_t)m;
-  if (smem > (size_t)kMaxDynamicBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stream_partials,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_panels = (n + kRows - 1) / kRows;
-  stream_partials<<<dim3(n_ctas, b), kThreads, smem, stream>>>(x, v, m_part, s_part, n, m,
-                                                               n_panels, n_ctas);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return combine(m_part, s_part, m_out, s_out, b, m, n_ctas, stream);
+// One step on `stream`, one cooperative launch: x (b, n, m), v (b, m) ->
+// m_out, s_out (b, m); part (b, blocks, m, 2) is scratch; all float32,
+// allocated by the caller. The plan is ops/sinkhorn_step_cuda.py's
+// step_plan, checked by otgan_local_step_prepare. Returns the cudaError_t of
+// the launch (0 on success).
+int otgan_local_step(const float* x, const float* v, float* m_out, float* s_out, float* part,
+                     int b, int n, int m, int blocks, int groups, int band, int rows, int stages,
+                     void* stream_ptr) {
+  int err = check_plan(b, n, m, blocks, groups, band, rows, stages);
+  if (err != 0) return err;
+  int vec_ok = (m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(v) % 16 == 0)
+                   ? 1
+                   : 0;
+  float2* part2 = reinterpret_cast<float2*>(part);
+  void* args[] = {&x, &v, &m_out, &s_out, &part2, &b, &n, &m, &band, &rows, &stages, &vec_ok};
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(stages), dim3(blocks, groups, 1),
+                                              dim3(kThreads, 1, 1), args,
+                                              smem_bytes(m, rows, stages),
+                                              static_cast<cudaStream_t>(stream_ptr));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 const char* otgan_step_error_string(int err) {
+  if (err == kErrNotResident) {
+    return "the card cannot hold every block of this plan at once (cooperative launch)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

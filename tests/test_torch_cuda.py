@@ -101,13 +101,16 @@ def test_public_entry_launches_kernel_not_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6, 313, 2500), (6, 100, 228), (2, 37, 50), (1, 1000, 4000)])
+@pytest.mark.parametrize("shape", [(6, 313, 2500), (6, 100, 228), (2, 37, 50), (1, 1000, 4000),
+                                   (6, 500, 2000), (2, 8, 40000)])
 @pytest.mark.parametrize("mode", ["fused", "stream"])
 def test_local_step_kernels_match_plain(cuda_device, shape, mode):
     """Both tiers at every shape (the tier rule picks one; either must be
     right), on the inputs of tests/test_torch_sinkhorn_step.py (x in [-50,
     0], v in [-5, 5], so |m| is a few units and float32 spacing stays under
-    5e-7): m within 1e-6 and s within 1e-5 relative of the plain version."""
+    5e-7): m within 1e-6 and s within 1e-5 relative of the plain version.
+    (6, 500, 2000) is one rank's block at batch 4000 on 4 GPUs; (2, 8,
+    40000), the fused tier's widest kind of block, takes the direct plan."""
     rng = np.random.default_rng(0)
     b, n, m = shape
     x = torch.from_numpy(rng.uniform(-50, 0, shape).astype(np.float32)).to(cuda_device)
@@ -124,13 +127,16 @@ def test_local_step_kernels_match_plain(cuda_device, shape, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_ctas", [((6, 4000, 4000), None), ((6, 1000, 4000), 4),
-                                          ((6, 313, 2500), 3), ((2, 37, 50), 1)])
+                                          ((6, 313, 2500), 3), ((2, 37, 50), 1),
+                                          ((2, 37, 50), 64), ((6, 100, 228), 60)])
 def test_stream_blocks_walking_several_panels_match_plain(cuda_device, shape, n_ctas):
-    """The stream tier where each block walks several 16-row panels, so the
-    online rescale of its column accumulators runs: (6, 4000, 4000) on the
-    default grid (2 panels a block on a 132-SM card), the others on a few
-    blocks (up to 16 panels each, the last one ragged). Inputs and limits
-    as above."""
+    """The stream tier where each block walks several ring stages, so the
+    online rescale of its column accumulators runs and the ring wraps:
+    (6, 4000, 4000) on the default plan (182 rows a block on a 132-SM
+    card), the others on a few blocks (up to 334 rows each, the last stage
+    ragged); and more blocks than rows ((2, 37, 50) on 64, (6, 100, 228) on
+    60), so some blocks own no rows and fold only. Inputs and limits as
+    above."""
     rng = np.random.default_rng(1)
     b, n, m = shape
     x = torch.from_numpy(rng.uniform(-50, 0, shape).astype(np.float32)).to(cuda_device)
@@ -139,6 +145,40 @@ def test_stream_blocks_walking_several_panels_match_plain(cuda_device, shape, n_
     m_ref, s_ref = sinkhorn_step_cuda.local_step_plain(x, v)
     torch.testing.assert_close(m_k, m_ref, atol=1e-6, rtol=0)
     torch.testing.assert_close(s_k, s_ref, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_local_step_is_deterministic(cuda_device):
+    """The fold runs in block order, with no float atomics: two calls give
+    bitwise-equal (m, s)."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(-50, 0, (6, 1000, 4000)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.uniform(-5, 5, (6, 4000)).astype(np.float32)).to(cuda_device)
+    step = sinkhorn_step_cuda.make_local_step(x)
+    m1, s1 = (t.clone() for t in step(v))
+    m2, s2 = step(v)
+    assert torch.equal(m1, m2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 500, 2000), (6, 1000, 4000)])
+def test_local_step_is_one_device_kernel(cuda_device, shape):
+    """Under torch.profiler one step of either tier's block launches exactly
+    one device kernel: the fold runs in the same launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand(shape, device=cuda_device) * -50.0
+    v = torch.zeros(shape[0], shape[2], device=cuda_device)
+    step = sinkhorn_step_cuda.make_local_step(x)
+    step(v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(v)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "local_step" in kernels[0].name
 
 
 @pytest.mark.cuda
