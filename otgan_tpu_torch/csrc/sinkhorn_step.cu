@@ -29,29 +29,32 @@
 //   rounds.
 //
 //   Ring (the "ring" plan, while v, the accumulators and one stage of one
-//   row fit: m up to 14,254 on an H100): thread 0 streams the band into `stages`
-//   shared-memory stages of `rows` rows each with one 1D TMA bulk copy a
-//   stage (cp.async.bulk, completion counted in bytes on an mbarrier), and
-//   refills a stage as soon as it is consumed, so stages - 1 copies are in
-//   flight while one is computed. v is copied into shared memory once a
-//   launch, the column accumulators live there too.
+//   row fit: m up to 14,254 on an H100): thread 0 streams the band into
+//   `stages` shared-memory stages of `rows` rows each with one 1D TMA bulk
+//   copy a stage (cp.async.bulk, completion counted in bytes on an
+//   mbarrier), and refills a stage as soon as it is consumed, so stages - 1
+//   copies are in flight while one is computed; a band that fits one stage
+//   is one copy. v is copied into shared memory once a launch.
 //
 //   Row step, from the stage: the rows of a stage go to groups of W warps
-//   (W = 16 / rows, at least 1); each thread walks its float4s of
-//   the row with an online (max, sum), rescaled once per 16 values, the
-//   warps' partials meet in shared memory: u for the stage's rows.
+//   (W = 16 / rows, at least 1); each thread walks its float4s of the row
+//   with an online (max, sum), rescaled once per 16 values (the 4-12 left
+//   as one chunk), the warps' partials meet in shared memory: u for the
+//   stage's rows.
 //
 //   Column step, on the same stage: a thread per 4 adjacent columns (float4
-//   loads, 4 chains at once; chunks of 8, 4, 2, 1 rows), or per column where
-//   rows are not 16-byte aligned (chunks of 16, 8, 4, 2, 1), folds the
-//   stage's rows into the columns' running (max, sum): one expf per cell,
-//   one rescale per chunk.
+//   loads, 4 chains at once; chunks of 8 rows, the rows left as one chunk),
+//   or per column where rows are not 16-byte aligned (chunks of 16, 8, 4,
+//   2, 1), folds the stage's rows into the columns' running (max, sum): one
+//   expf per cell, one rescale per chunk. On the ring with float4 rows and m
+//   up to 4096 (KQ = 1 or 2 quads of columns a thread) the running pairs
+//   stay in registers for the whole band; otherwise in shared memory.
 //
 //   Fold, in the same launch: each block writes its (max, sum) pair per
 //   column to a (b, G, m) float2 scratch (st.global.cg), one grid barrier
 //   (cg::this_grid().sync(): the launch is cooperative, every block is
 //   resident), then each block folds its slice of ceil(m / G) columns over
-//   the G partials in block order (ld.global.cg; deterministic, no float
+//   the G partials in a fixed order (ld.global.cg; deterministic, no float
 //   atomics). A ticket that makes the last-arriving block fold would put a
 //   whole matrix's fold (4000 x 22 pairs) on the one block that finished
 //   last; the barrier spreads it over all G.
@@ -156,8 +159,28 @@ __device__ __forceinline__ void issue_stage(float* stage, uint64_t* bar, const f
       : "memory");
 }
 
-// One thread's share of row xr: its float4s (vec) or floats, strided by the
-// T threads of its warp group, into the online (max, sum).
+// Q float4s x4[j + q T] + v4[j + q T], q < Q, as one chunk of the online
+// (max, sum).
+template <int Q>
+__device__ __forceinline__ void row_quads(const float4* __restrict__ x4,
+                                          const float4* __restrict__ v4, int j, int T,
+                                          float& mx, float& s) {
+  float y[4 * Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float4 a = x4[j + q * T];
+    const float4 w = v4[j + q * T];
+    y[4 * q] = a.x + w.x;
+    y[4 * q + 1] = a.y + w.y;
+    y[4 * q + 2] = a.z + w.z;
+    y[4 * q + 3] = a.w + w.w;
+  }
+  online_chunk<4 * Q>(y, mx, s);
+}
+
+// One thread's share of row xr: its float4s (vec; chunks of 4 float4s, the
+// 1-3 left as one chunk) or floats, strided by the T threads of its warp
+// group, into the online (max, sum).
 template <bool kVec>
 __device__ __forceinline__ void row_share(const float* __restrict__ xr,
                                           const float* __restrict__ vm, int m, int t, int T,
@@ -167,24 +190,13 @@ __device__ __forceinline__ void row_share(const float* __restrict__ xr,
     const float4* v4 = reinterpret_cast<const float4*>(vm);
     const int m4 = m / 4;
     int j = t;
-    for (; j + 3 * T < m4; j += 4 * T) {
-      float y[16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 a = x4[j + q * T];
-        const float4 w = v4[j + q * T];
-        y[4 * q] = a.x + w.x;
-        y[4 * q + 1] = a.y + w.y;
-        y[4 * q + 2] = a.z + w.z;
-        y[4 * q + 3] = a.w + w.w;
-      }
-      online_chunk<16>(y, mx, s);
-    }
-    for (; j < m4; j += T) {
-      const float4 a = x4[j];
-      const float4 w = v4[j];
-      const float y[4] = {a.x + w.x, a.y + w.y, a.z + w.z, a.w + w.w};
-      online_chunk<4>(y, mx, s);
+    for (; j + 3 * T < m4; j += 4 * T) row_quads<4>(x4, v4, j, T, mx, s);
+    if (j + 2 * T < m4) {
+      row_quads<3>(x4, v4, j, T, mx, s);
+    } else if (j + T < m4) {
+      row_quads<2>(x4, v4, j, T, mx, s);
+    } else if (j < m4) {
+      row_quads<1>(x4, v4, j, T, mx, s);
     }
   } else {
     int j = t;
@@ -258,6 +270,25 @@ __device__ __forceinline__ void quad_chunk(const float4* __restrict__ x4,
   for (int k = 0; k < 4; ++k) online_chunk<R>(z[k], mx[k], s[k]);
 }
 
+// The rk rows of the 4 columns of x4[0] (row stride m4 float4s) in chunks of
+// 8 rows, the rows left as one chunk: one rescale each.
+__device__ __forceinline__ void quad_rows(const float4* __restrict__ x4,
+                                          const float* __restrict__ u, int m4, int rk, float* mx,
+                                          float* s) {
+  int r0 = 0;
+  for (; r0 + 8 <= rk; r0 += 8) quad_chunk<8>(x4, u, m4, r0, mx, s);
+  switch (rk - r0) {
+    case 7: quad_chunk<7>(x4, u, m4, r0, mx, s); break;
+    case 6: quad_chunk<6>(x4, u, m4, r0, mx, s); break;
+    case 5: quad_chunk<5>(x4, u, m4, r0, mx, s); break;
+    case 4: quad_chunk<4>(x4, u, m4, r0, mx, s); break;
+    case 3: quad_chunk<3>(x4, u, m4, r0, mx, s); break;
+    case 2: quad_chunk<2>(x4, u, m4, r0, mx, s); break;
+    case 1: quad_chunk<1>(x4, u, m4, r0, mx, s); break;
+    default: break;
+  }
+}
+
 // Column step of one stage of rk rows: a thread per column (scalar), or per
 // 4 adjacent columns (vec_ok: float4 loads, 4 chains at once), folding the
 // rows into the running (max, sum) pairs acc (shared memory on the ring
@@ -274,12 +305,7 @@ __device__ __forceinline__ void column_step(const float* __restrict__ xs,
       const float4 a23 = kRing ? a4[1] : __ldcg(a4 + 1);
       float mx[4] = {a01.x, a01.z, a23.x, a23.z};
       float s[4] = {a01.y, a01.w, a23.y, a23.w};
-      const float4* x4 = reinterpret_cast<const float4*>(xs) + c;
-      int r0 = 0;
-      for (; r0 + 8 <= rk; r0 += 8) quad_chunk<8>(x4, u, m4, r0, mx, s);
-      if (rk - r0 >= 4) quad_chunk<4>(x4, u, m4, r0, mx, s), r0 += 4;
-      if (rk - r0 >= 2) quad_chunk<2>(x4, u, m4, r0, mx, s), r0 += 2;
-      if (rk - r0 >= 1) quad_chunk<1>(x4, u, m4, r0, mx, s);
+      quad_rows(reinterpret_cast<const float4*>(xs) + c, u, m4, rk, mx, s);
       const float4 b01 = make_float4(mx[0], s[0], mx[1], s[1]);
       const float4 b23 = make_float4(mx[2], s[2], mx[3], s[3]);
       if (kRing) {
@@ -303,12 +329,28 @@ __device__ __forceinline__ void column_step(const float* __restrict__ xs,
   }
 }
 
+// Column step of one ring stage with float4 rows (KQ > 0): thread t keeps
+// the running (max, sum) of the quads t, t + kThreads, ... (KQ of them, 4
+// columns each) in registers for the whole band.
+template <int KQ>
+__device__ __forceinline__ void column_step_regs(const float* __restrict__ xs,
+                                                 const float* __restrict__ u, int rk, int m4,
+                                                 float (&mx)[KQ][4], float (&s)[KQ][4]) {
+#pragma unroll
+  for (int k = 0; k < KQ; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < m4) quad_rows(reinterpret_cast<const float4*>(xs) + c, u, m4, rk, mx[k], s[k]);
+  }
+}
+
 // Grid (G, groups), kThreads threads, cooperative: block (blockIdx.x,
 // blockIdx.y) owns rows [blockIdx.x * band, + band) of matrices blockIdx.y,
 // blockIdx.y + groups, ... Scratch: part (b, G, m) of (max, sum) pairs.
 // kRing: the band streams through `stages` shared-memory stages of `rows`
-// rows (TMA); otherwise it is read in place, stages of `rows` rows.
-template <bool kRing>
+// rows (TMA); otherwise it is read in place, stages of `rows` rows. KQ > 0
+// (ring, float4 rows, m / 4 <= KQ * kThreads): the column accumulators live
+// in registers, KQ quads of columns a thread.
+template <bool kRing, int KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 local_step(const float* __restrict__ x, const float* __restrict__ v, float* __restrict__ m_out,
            float* __restrict__ s_out, float2* __restrict__ part, int b, int n, int m, int band,
@@ -343,6 +385,8 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
     }
     __syncthreads();
   }
+  constexpr int kq = KQ > 0 ? KQ : 1;
+  float cm[kq][4], cs[kq][4];
   uint32_t q = 0;  // stages consumed so far: stage q sits in slot q % stages, parity (q / stages) & 1
 
   for (int mat0 = 0; mat0 < b; mat0 += groups) {
@@ -360,9 +404,16 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
                         (size_t)min(rows, own - k * rows) * m);
           }
         }
+        if (KQ > 0) {
+#pragma unroll
+          for (int k = 0; k < kq; ++k) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) cm[k][c] = -INFINITY, cs[k][c] = 0.f;
+          }
+        }
         for (int j = tid; j < m; j += kThreads) {
           vs[j] = vm[j];
-          acc_s[j] = make_float2(-INFINITY, 0.f);
+          if (KQ == 0) acc_s[j] = make_float2(-INFINITY, 0.f);
         }
         vm = vs;
         acc = acc_s;
@@ -381,7 +432,11 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
           xs = ring + slot * sf + (reinterpret_cast<uintptr_t>(src) & 15) / 4;
         }
         row_step(xs, vm, u, red_m, red_s, rk, m, rows, vec_ok);
-        column_step<kRing>(xs, u, acc, rk, m, vec_ok);
+        if constexpr (KQ > 0) {
+          column_step_regs<KQ>(xs, u, rk, m / 4, cm, cs);
+        } else {
+          column_step<kRing>(xs, u, acc, rk, m, vec_ok);
+        }
         __syncthreads();  // the stage and u are free
         if (kRing && tid == 0 && k + stages < n_stages) {
           const uint32_t slot = q % stages;
@@ -389,7 +444,17 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
                       (size_t)min(rows, own - (k + stages) * rows) * m);
         }
       }
-      if (kRing) {
+      if (KQ > 0) {
+#pragma unroll
+        for (int k = 0; k < kq; ++k) {
+          const int c = tid + k * kThreads;
+          if (c < m / 4) {
+            float4* p4 = reinterpret_cast<float4*>(pb + 4 * c);
+            __stcg(p4, make_float4(cm[k][0], cs[k][0], cm[k][1], cs[k][1]));
+            __stcg(p4 + 1, make_float4(cm[k][2], cs[k][2], cm[k][3], cs[k][3]));
+          }
+        }
+      } else if (kRing) {
         for (int j = tid; j < m; j += kThreads) __stcg(pb + j, acc_s[j]);
       }
     }
@@ -439,8 +504,15 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
   }
 }
 
-const void* kernel_for(int stages) {
-  return stages > 0 ? (const void*)local_step<true> : (const void*)local_step<false>;
+constexpr int kMaxKQ = 2;  // register accumulators up to 2 * 4 * kThreads columns
+
+// The kernel of a plan: in place (stages 0), or the ring with kq quads of
+// register accumulators a thread (0: in shared memory).
+const void* kernel_for(int stages, int kq) {
+  if (stages == 0) return (const void*)local_step<false, 0>;
+  if (kq == 1) return (const void*)local_step<true, 1>;
+  if (kq == 2) return (const void*)local_step<true, 2>;
+  return (const void*)local_step<true, 0>;
 }
 
 int check_plan(int b, int n, int m, int blocks, int groups, int band, int rows, int stages) {
@@ -472,15 +544,19 @@ int otgan_local_step_prepare(int b, int n, int m, int blocks, int groups, int ba
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   const size_t smem = smem_bytes(m, rows, stages);
   if (e == cudaSuccess && smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  // the largest a block may ask for, so that no plan's prepare lowers another's
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel_for(stages), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(stages), kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if ((long long)per_sm * sms < (long long)blocks * groups) return kErrNotResident;
-  return 0;
+  // every kernel the plan may launch (its kq depends on the pointers); the
+  // largest a block may ask for, so that no plan's prepare lowers another's
+  for (int kq = 0; kq <= (stages > 0 ? kMaxKQ : 0); ++kq) {
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel_for(stages, kq),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(stages, kq),
+                                                        kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if ((long long)per_sm * sms < (long long)blocks * groups) return kErrNotResident;
+  }
+  return (int)e;
 }
 
 // One step on `stream`, one cooperative launch: x (b, n, m), v (b, m) ->
@@ -497,9 +573,11 @@ int otgan_local_step(const float* x, const float* v, float* m_out, float* s_out,
                 reinterpret_cast<uintptr_t>(v) % 16 == 0)
                    ? 1
                    : 0;
+  const int quads = (m / 4 + kThreads - 1) / kThreads;
+  const int kq = (stages > 0 && vec_ok && quads <= kMaxKQ) ? quads : 0;
   float2* part2 = reinterpret_cast<float2*>(part);
   void* args[] = {&x, &v, &m_out, &s_out, &part2, &b, &n, &m, &band, &rows, &stages, &vec_ok};
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(stages), dim3(blocks, groups, 1),
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(stages, kq), dim3(blocks, groups, 1),
                                               dim3(kThreads, 1, 1), args,
                                               smem_bytes(m, rows, stages),
                                               static_cast<cudaStream_t>(stream_ptr));

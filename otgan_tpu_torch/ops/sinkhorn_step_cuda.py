@@ -56,9 +56,9 @@ WARPS = 16
 MAX_STAGES = 8
 MAX_STAGE_ROWS = 32
 BARRIER_FLOATS = 2 * MAX_STAGES
-# the ring's stages by default (1 where two do not fit), each of the most
-# rows that fit: measure_local_step.py's sweep on an H100 (PERF.md), and the
-# rows a stage of the direct plan reads in place
+# the ring's stages where one stage does not hold the band (1 where two do
+# not fit), each of the most rows that fit: measure_local_step.py's sweep on
+# an H100 (PERF.md), and the rows a stage of the direct plan reads in place
 DEFAULT_STAGES = 2
 DIRECT_STAGE_ROWS = 8
 
@@ -154,10 +154,12 @@ def step_plan(b: int, n: int, m: int, sm_count: int = H100_LIMITS[0],
     Blocks: ``sm_count // b`` a matrix by default (22 at b = 6 on 132 SMs),
     at most one per row, one block an SM, so every matrix runs at once
     where ``b <= sm_count``; ``blocks`` forces the count (a measurement
-    sweeps it; blocks past the last row own none). Ring: ``stages`` (default
-    ``DEFAULT_STAGES``, then 1 where that does not fit) of the most rows, up
-    to ``MAX_STAGE_ROWS`` and the band, that fit beside v and the
-    accumulators, and no more stages than the band fills. Where not even one
+    sweeps it; blocks past the last row own none). Ring: by default one
+    stage that holds the whole band where it fits (one copy; the small
+    blocks of the fused tier), else ``DEFAULT_STAGES`` stages, then 1, of
+    the most rows, up to ``MAX_STAGE_ROWS`` and the band, that fit beside v
+    and the accumulators; a forced ``stages`` the same way, and never more
+    stages than the band fills. Where not even one
     stage of one row fits (m above 14,254 on an H100), or where
     ``stages`` is 0, the direct plan: stages of ``DIRECT_STAGE_ROWS`` rows
     read in place."""
@@ -173,6 +175,8 @@ def step_plan(b: int, n: int, m: int, sm_count: int = H100_LIMITS[0],
     groups = max(1, min(b, sm_count // blocks))
     if stages is not None and not 0 <= stages <= MAX_STAGES:
         return None
+    if stages is None and band <= MAX_STAGE_ROWS and smem_bytes(m, band, 1) <= smem_per_block:
+        return StepPlan(blocks, band, groups, band, 1, smem_bytes(m, band, 1))
     rings = (DEFAULT_STAGES, 1) if stages is None else (stages,) if stages else ()
     for s in rings:
         rows = next((r for r in range(min(MAX_STAGE_ROWS, band), 0, -1)

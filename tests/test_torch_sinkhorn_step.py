@@ -135,7 +135,8 @@ def test_plan_covers_every_row_once_within_shared_memory(shape):
     ((6, 1000, 4000), 9, None, None)])
 def test_plan_ring_direct_and_forced(shape, stages, blocks, ring):
     """The ring where v, the accumulators and the stages fit (22 blocks of
-    46 rows at (6, 1000, 4000)); in place above that or where forced; a
+    46 rows at (6, 1000, 4000)); one stage holding the whole band where it
+    fits (the fused tier's rank blocks); in place above that or where forced; a
     forced block count past the rows leaves blocks with none; a plan the
     card cannot run is None (more blocks than SMs; a forced ring too wide
     for the memory; more stages than the kernel has barriers)."""
@@ -150,6 +151,9 @@ def test_plan_ring_direct_and_forced(shape, stages, blocks, ring):
         assert sorted(r for blk in _block_rows(plan, n) for r in blk) == list(range(n))
     if shape == (6, 1000, 4000) and blocks is None:
         assert (plan.blocks, plan.band, plan.groups) == (22, 46, 6)
+        assert stages is not None or plan.stages == st.DEFAULT_STAGES
+    if shape in ((6, 313, 2500), (6, 500, 2000)) and stages is None:
+        assert (plan.stages, plan.stage_rows) == (1, plan.band)
     if stages:
         assert plan.stages == min(stages, -(-plan.band // plan.stage_rows))
 
@@ -157,11 +161,12 @@ def test_plan_ring_direct_and_forced(shape, stages, blocks, ring):
 def _model_step(x, v, plan):
     """The kernel's float32 order of work, in torch: u per row; per block
     its rows' column (max, sum), stage by stage and within a stage in
-    chunks of 8, 4, 2, 1 rows (float4 columns, ``m % 4 == 0``) or 16, 8, 4,
-    2, 1 (scalar columns) with one rescale each (a block with no rows keeps
-    (-inf, 0)); then the partials folded in block order."""
+    chunks of 8 rows and the rows left as one chunk (float4 columns, ``m %
+    4 == 0``) or of 16, 8, 4, 2, 1 rows (scalar columns), one rescale each
+    (a block with no rows keeps (-inf, 0)); then the partials folded in
+    block order."""
     b, n, m = x.shape
-    sizes = (8, 4, 2, 1) if m % 4 == 0 else (16, 8, 4, 2, 1)
+    sizes = (8, 7, 6, 5, 4, 3, 2, 1) if m % 4 == 0 else (16, 8, 4, 2, 1)
     y = x + v[:, None, :]
     rm = torch.amax(y, dim=-1, keepdim=True)
     u = -(rm + torch.log(torch.sum(torch.exp(y - rm), dim=-1, keepdim=True)))
