@@ -476,17 +476,23 @@ def hold_local_step(x, n_blocks: int, label: str, whole: bool = False) -> dict:
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` launches, from
-    ``torch.profiler``."""
+    ``torch.profiler``. A profile whose trace holds no device event at all
+    (the card's trace came back empty, which a later profile in one process
+    sometimes gives) is taken again, at most three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def time_local_step(blk, mode: str, bw: float, flops: float, exp_rate: float) -> dict:

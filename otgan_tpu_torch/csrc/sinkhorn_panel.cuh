@@ -23,21 +23,13 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "sinkhorn_loops.cuh"  // warp_max, warp_sum
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // rows per panel
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Row step of one panel: a warp per row writes u_s[r] for r < rows.
 // xp points at the panel's first row, vm at the matrix's column potential.

@@ -164,7 +164,10 @@ def test_local_step_is_deterministic(cuda_device):
 @pytest.mark.parametrize("shape", [(6, 500, 2000), (6, 1000, 4000)])
 def test_local_step_is_one_device_kernel(cuda_device, shape):
     """Under torch.profiler one step of either tier's block launches exactly
-    one device kernel: the fold runs in the same launch."""
+    one device kernel: the fold runs in the same launch. A profile whose
+    trace holds no device event at all (the card's trace came back empty,
+    which a later profile in one process sometimes gives) is taken again, at
+    most three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,10 +176,13 @@ def test_local_step_is_one_device_kernel(cuda_device, shape):
     step = sinkhorn_step_cuda.make_local_step(x)
     step(v)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(v)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(v)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
     assert len(kernels) == 1, [e.name for e in kernels]
     assert "local_step" in kernels[0].name
 
