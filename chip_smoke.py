@@ -5,11 +5,12 @@ Run from the root of a checkout, it
 
 1. prints the card's ``nvidia-smi`` name and power limit;
 2. builds every CUDA kernel from ``otgan_tpu_torch/csrc/``;
-3. holds the column-potential kernel (kernel 1) against its plain PyTorch
-   version on the card, at the main path's shapes (6 x 2500^2, lam = 500,
-   500 iterations), where kernel 1's path is the grid kernel's yardstick,
-   and at a ragged one (6 x 100 x 228): max |dP| <= 1e-5 and |d entropy|
-   <= 1e-4; then kernel 1's path, the public entry (which takes the
+3. holds the column-potential loop (kernel 1 above the grid kernel's
+   ceiling: the local-step kernel's v mode, one launch an iteration)
+   against its plain PyTorch version on the card, at the main path's shapes
+   (6 x 2500^2, lam = 500, 500 iterations), where kernel 1's path is the
+   grid kernel's yardstick, and at a ragged one (6 x 100 x 228): max |dP|
+   <= 1e-5 and |d entropy| <= 1e-4; then kernel 1's path, the public entry (which takes the
    resident tier at that size) and the grid kernel against a float64
    Sinkhorn on a small input;
 3b. holds the grid kernel (one launch per match, the matrix in the shared
@@ -45,8 +46,12 @@ Run from the root of a checkout, it
    within 1e-4), whose own launches are read too: the grid tier at batch
    2000, kernel 1 at batch 8000 (6 x 4000^2, above the grid tier), the one
    path left to kernel 1 on one card: there kernel 1 is held against its
-   plain version on the matcher's own costs (P within 1e-5, entropy within
-   1e-4) and timed beside it and its bound, the numbers of its entry;
+   plain version on the matcher's own costs and on a ragged (2, 2700, 2650)
+   above the ceiling (P within 1e-5, entropy within 1e-4), its v must be
+   bitwise equal across two calls and a 3-iteration call must launch
+   exactly 3 device kernels, all the local-step kernel (``torch.profiler``);
+   then it is timed beside its plain version and its bound, the numbers of
+   its entry;
 7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
    are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
    single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
@@ -68,7 +73,9 @@ Run from the root of a checkout, it
    256) (the toy at batch 512), (1, 768, 768), a ragged (6, 100, 228) and
    the single-batch (3, 128, 128) with the +999 diagonal (P within 1e-5,
    entropy within 1e-4, diag(P) < 1e-6), with the three times and the
-   bound at each;
+   bound at each; then at 6 x 128^2 on every cluster size that fits (held
+   and timed), and ITERS cluster barriers alone on the planned clusters of
+   6 x 128^2 and of the toy's 6 x 256^2, the loop's latency floor;
 9. drives the toy MED-GAN with the notebook's settings (batch 512, lam 50,
    10 iterations, 1:1) for 2 short epochs with a checkpoint, counters
    zeroed just before: rank 0's ``launches`` must show the resident
@@ -82,7 +89,8 @@ Run from the root of a checkout, it
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
    same work on this card and, as ``sfu_floor_ms``, its expf alone at the
-   special-function units' peak;
+   special-function units' peak; every number printed stands after the
+   card's ``nvidia-smi`` name and power limit, the first line;
 12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
@@ -192,16 +200,40 @@ def compare_with_plain(costs, label: str) -> dict:
     return {"x": x, **res}
 
 
-def time_kernel1(costs, bw: float, flops: float, exp_rate: float) -> dict:
-    """Kernel 1 on ``costs``: held against its plain version (raises past
-    the limits), then its time, the plain version's and its bound: x read
-    once and v written once (the column potential writes no P)."""
+def time_kernel1(costs, ragged, bw: float, flops: float, exp_rate: float) -> dict:
+    """Kernel 1 above the grid kernel's ceiling (the local-step kernel in its
+    v mode, one launch an iteration) on ``costs`` and on the ragged costs
+    ``ragged``, both of the "tiled" tier on this card: held against its
+    plain version (raises past the limits), v bitwise equal across two
+    calls, exactly 3 device kernels, all the local-step kernel, in a
+    3-iteration call under ``torch.profiler``; then its time on ``costs``,
+    the plain version's and its bound: x read once and v written once (the
+    column potential writes no P)."""
+    import torch
     from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+    from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
+    from otgan_tpu_torch.ops.sinkhorn import kernel_tier
 
-    held = compare_with_plain(costs, "kernel 1's path")
-    x = held.pop("x")
+    limits = gc.card_limits(costs.device)
+    for c in (costs, ragged):
+        if kernel_tier(*c.shape[-2:], limits) != "tiled":
+            raise AssertionError(f"{tuple(c.shape)} is not above the grid kernel's ceiling")
+    held = {"main": compare_with_plain(costs, "kernel 1's path"),
+            "ragged": compare_with_plain(ragged, "kernel 1's path, ragged")}
+    x = held["main"].pop("x")
+    held["ragged"].pop("x")
+    v1 = sk.col_potential_cuda(x, ITERS).clone()
+    v2 = sk.col_potential_cuda(x, ITERS)
+    names = device_kernels(lambda: sk.col_potential_cuda(x, 3))
+    res = {"bitwise_repeatable": bool(torch.equal(v1, v2)), "device_kernels_3_iters": names}
+    print(f"kernel 1 at {tuple(x.shape)}: v bitwise equal across two calls: "
+          f"{res['bitwise_repeatable']}; device kernels of a 3-iteration call: {names}", flush=True)
+    if not res["bitwise_repeatable"]:
+        raise AssertionError("kernel 1's v differs between two calls on the same input")
+    if len(names) != 3 or not all("local_step" in nm for nm in names):
+        raise AssertionError(f"a 3-iteration kernel 1 call launched {names}")
     b, n, m = x.shape
-    return {"max_abs_err": held["max_abs_dP"], "held": held,
+    return {"max_abs_err": max(h["max_abs_dP"] for h in held.values()), "held": held, **res,
             "ms": cuda_ms(lambda: sk.col_potential_cuda(x, ITERS), reps=3),
             "plain_ms": cuda_ms(lambda: sk.col_potential_plain(x, ITERS), reps=2),
             **loop_bound(4 * b * n * m + 4 * b * m, b * n * m * ITERS, bw, flops, exp_rate),
@@ -263,7 +295,7 @@ def hold_resident(costs, label: str, bw: float, flops: float, exp_rate: float) -
     b, n, m = costs.shape
     res = {
         "shape": [b, n, m],
-        "cluster": list(rc.resident_plan(n, m)),
+        "plan": rc.resident_plan(n, m)._asdict(),
         "max_abs_dP": float((p - p_ref).abs().max()),
         "max_abs_dentropy": float((e - e_ref).abs().max()),
         "max_abs_dP_vs_kernel1": float((p - p_k1).abs().max()),
@@ -288,6 +320,37 @@ def hold_resident(costs, label: str, bw: float, flops: float, exp_rate: float) -
           f"{res['bound_ms']:.4f} ms by {res['bound_by']} (expf alone "
           f"{res['sfu_floor_ms']:.4f} ms)", flush=True)
     return res
+
+
+def resident_clusters(costs, bw: float, flops: float, exp_rate: float) -> dict:
+    """The resident kernel at every cluster size that fits ``costs``
+    (b, N, M), each held against the plain version (raises past P_TOL and
+    ENT_TOL) and timed; and the cluster barrier alone, ITERS of them on b
+    clusters of the planned size: the loop's latency floor."""
+    import torch
+    from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
+
+    b, n, m = costs.shape
+    p_ref, e_ref = rc.sinkhorn_resident_plain(costs, LAM, ITERS)
+    out = {}
+    for cs in range(1, rc.MAX_CLUSTER + 1):
+        if rc.resident_plan(n, m, cs) is None:
+            continue
+        p, e = rc.sinkhorn_resident_cuda(costs, LAM, ITERS, cluster_size=cs)
+        res = {"max_abs_dP": float((p - p_ref).abs().max()),
+               "max_abs_dentropy": float((e - e_ref).abs().max()),
+               "ms": cuda_ms(lambda: rc.sinkhorn_resident_cuda(costs, LAM, ITERS, cluster_size=cs),
+                             reps=10)}
+        if not (bool(torch.isfinite(p).all()) and res["max_abs_dP"] <= P_TOL
+                and res["max_abs_dentropy"] <= ENT_TOL):
+            raise AssertionError(f"the resident kernel disagrees on a cluster of {cs} at "
+                                 f"{tuple(costs.shape)}: {res}")
+        out[cs] = res
+    planned = rc.resident_plan(n, m).cluster
+    floor = cuda_ms(lambda: rc.barrier_loop_cuda(planned, b, ITERS), reps=10)
+    print(f"resident kernel at {tuple(costs.shape)} by cluster size (planned {planned}): "
+          f"{json.dumps(out)}; {ITERS} cluster barriers alone {floor:.4f} ms", flush=True)
+    return {"by_cluster": out, "planned": planned, "barrier_floor_ms": floor}
 
 
 def grid_shapes(gen, main_costs) -> dict:
@@ -1018,8 +1081,14 @@ def main() -> int:
             check_tier_path(single_counts[B], want, f"the single-device matcher at batch {B}",
                             want=1)
             if B == 8000:
-                k1 = time_kernel1(two_batch_costs(fa, fb), bw, flops, exp_rate)
-                print(f"kernel 1 at {k1['shape']} x {ITERS} iters, the single-device matcher's "
+                # and at a ragged shape above the ceiling: (2, 2700, 2650)
+                ragged_k1 = torch.stack([cosine_cost(unit_features(gen, 2700, 32768),
+                                                     unit_features(gen, 2650, 32768))
+                                         for _ in range(2)])
+                k1 = time_kernel1(two_batch_costs(fa, fb), ragged_k1, bw, flops, exp_rate)
+                del ragged_k1
+                print(f"kernel 1 (the local-step kernel's v mode) at {k1['shape']} x {ITERS} "
+                      f"iters, the single-device matcher's "
                       f"costs at batch {B}, on {card}: kernel {k1['ms']:.3f} ms, plain "
                       f"{k1['plain_ms']:.3f} ms; bound {k1['bound_ms']:.4f} ms by "
                       f"{k1['bound_by']} at {peak_key} peaks (expf alone "
@@ -1064,6 +1133,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     resident = {label: hold_resident(c, label, bw, flops, exp_rate)
                 for label, c in resident_shapes(gen).items()}
+    clusters = resident_clusters(two_batch_costs(unit_features(gen, 256, 32768),
+                                                 unit_features(gen, 256, 32768)),
+                                 bw, flops, exp_rate)
 
     # ---- 9. the toy path: train, resume, sample; 10. the DCGAN at batch 256 ----
     toy = toy_phase(card)
@@ -1094,13 +1166,16 @@ def main() -> int:
     }, {
         "name": "sinkhorn_col_potential",
         "route": "cuda",
-        "source": "otgan_tpu_torch/csrc/sinkhorn.cu",
+        "source": "otgan_tpu_torch/csrc/sinkhorn_step.cu",
         "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
+        "design": "the local-step kernel in its v mode, one launch an iteration, one C call "
+                  "a match (otgan_col_potential)",
         "launches": single_counts[8000]["col_potential"],
         "launches_from": "phase 6: the single-device matcher at batch 8000 (6 x 4000^2, above "
                          "the grid tier's ceiling), counters zeroed just before; the main path "
-                         "takes the grid tier. Every number of this entry is at that shape, on "
-                         "the matcher's costs",
+                         "takes the grid tier. Every time of this entry is at that shape, on "
+                         "the matcher's costs; held also at a ragged (2, 2700, 2650)",
+        "at_6x2500_ms": grid_t["kernel1_path_ms"],
         **k1,
         "library_ms": None,
         "library_null_reason": no_loop_library,
@@ -1134,6 +1209,12 @@ def main() -> int:
             "multi_gpu_training": multi.get(mode),
         })
     own = resident["toy_b512"]  # the shape of the slice's path
+    from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
+
+    planned = rc.resident_plan(*own["shape"][1:]).cluster  # ITERS barriers at the toy's plan
+    resident_floor = {"barrier_floor_ms": cuda_ms(
+        lambda: rc.barrier_loop_cuda(planned, own["shape"][0], ITERS), reps=10),
+        "shape": own["shape"], "cluster": planned}
     kernels.append({
         "name": "sinkhorn_resident",
         "route": "cuda",
@@ -1153,8 +1234,11 @@ def main() -> int:
         "library_null_reason": no_loop_library,
         "shape": own["shape"],
         "n_iters": ITERS,
-        "cluster": own["cluster"],
+        "plan": own["plan"],
+        "barrier_floor_ms": resident_floor["barrier_floor_ms"],
+        "barrier_floor_at": resident_floor["shape"],
         "held": resident,
+        "clusters_6x128": clusters,
         "toy_path": toy,
         "dcgan_b256": b256,
     })

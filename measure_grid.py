@@ -16,8 +16,10 @@ and the grid kernel's plan (``ops/sinkhorn_grid_cuda.py``):
    iterations), N = 128, 256, 384, 512, 768, 1024, 1500, 2000, 2500 and the
    largest square the grid kernel holds: the grid kernel on its plan, the
    resident kernel where it holds the matrix, and kernel 1's path
-   (``sinkhorn_assignment_kernel``); kernel 1's path alone at N = 4000. The
-   grid kernel's P is held against kernel 1's within 1e-5 at each N.
+   (``sinkhorn_assignment_kernel``: the local-step kernel's v mode, one
+   launch an iteration, which the tier rule takes above the grid kernel's
+   ceiling); kernel 1's path alone at N = 4000. The grid kernel's P is held
+   against kernel 1's within 1e-5 at each N.
 
 It prints the card's ``nvidia-smi`` name and power limit first, and one
 JSON line of results last. It needs a card and raises without one.

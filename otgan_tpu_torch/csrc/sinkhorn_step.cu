@@ -16,6 +16,18 @@
 // function, so both tiers launch this kernel; ops/sinkhorn_step_cuda.py
 // counts each tier's launches.
 //
+// The v mode replaces otgan_tpu/ops/sinkhorn_pallas_tiled.py::_kernel (TPU
+// kernel 1, via _col_potential) for matrices above what the grid kernel
+// (sinkhorn_grid.cu) holds, e.g. batch 8000's 6 x 4000^2: on a whole matrix
+// one local step is one Sinkhorn iteration, and the fold writes the new
+// column potential v' = -(m + log s) in place of (m, s), in the same fixed
+// order, so v is bitwise repeatable. otgan_col_potential runs the n_iters
+// loop, one launch an iteration, from one C call a match
+// (ops/sinkhorn_cuda.py counts it as kernel 1). Its bound at 6 x 4000^2 is
+// the 2 expf a cell of each iteration (23 ms a match of 500 iterations at
+// the MUFU rate); 384 MB do not stay in the 50 MB L2, so each iteration
+// reads x once from device memory (0.115 ms): one pass of the TMA ring.
+//
 // What bounds it: one read of the block from device memory (96 MB at (6,
 // 1000, 4000): 28.7 us at 3.35 TB/s; 18.8 MB at (6, 313, 2500): 5.6 us), and
 // 2 expf per cell (11.5 us at (6, 1000, 4000) at the MUFU rate). The design
@@ -159,9 +171,9 @@ __device__ __forceinline__ void issue_stage(float* stage, uint64_t* bar, const f
       : "memory");
 }
 
-// Q float4s x4[j + q T] + v4[j + q T], q < Q, as one chunk of the online
-// (max, sum).
-template <int Q>
+// Q float4s x4[j + q T] + v4[j + q T], q < Q (kZero: v = 0, not read), as
+// one chunk of the online (max, sum).
+template <int Q, bool kZero>
 __device__ __forceinline__ void row_quads(const float4* __restrict__ x4,
                                           const float4* __restrict__ v4, int j, int T,
                                           float& mx, float& s) {
@@ -169,7 +181,7 @@ __device__ __forceinline__ void row_quads(const float4* __restrict__ x4,
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const float4 a = x4[j + q * T];
-    const float4 w = v4[j + q * T];
+    const float4 w = kZero ? make_float4(0.f, 0.f, 0.f, 0.f) : v4[j + q * T];
     y[4 * q] = a.x + w.x;
     y[4 * q + 1] = a.y + w.y;
     y[4 * q + 2] = a.z + w.z;
@@ -180,8 +192,9 @@ __device__ __forceinline__ void row_quads(const float4* __restrict__ x4,
 
 // One thread's share of row xr: its float4s (vec; chunks of 4 float4s, the
 // 1-3 left as one chunk) or floats, strided by the T threads of its warp
-// group, into the online (max, sum).
-template <bool kVec>
+// group, into the online (max, sum). kZero: the column potential is 0 (the
+// first iteration of the v mode), vm is not read.
+template <bool kVec, bool kZero>
 __device__ __forceinline__ void row_share(const float* __restrict__ xr,
                                           const float* __restrict__ vm, int m, int t, int T,
                                           float& mx, float& s) {
@@ -190,32 +203,33 @@ __device__ __forceinline__ void row_share(const float* __restrict__ xr,
     const float4* v4 = reinterpret_cast<const float4*>(vm);
     const int m4 = m / 4;
     int j = t;
-    for (; j + 3 * T < m4; j += 4 * T) row_quads<4>(x4, v4, j, T, mx, s);
+    for (; j + 3 * T < m4; j += 4 * T) row_quads<4, kZero>(x4, v4, j, T, mx, s);
     if (j + 2 * T < m4) {
-      row_quads<3>(x4, v4, j, T, mx, s);
+      row_quads<3, kZero>(x4, v4, j, T, mx, s);
     } else if (j + T < m4) {
-      row_quads<2>(x4, v4, j, T, mx, s);
+      row_quads<2, kZero>(x4, v4, j, T, mx, s);
     } else if (j < m4) {
-      row_quads<1>(x4, v4, j, T, mx, s);
+      row_quads<1, kZero>(x4, v4, j, T, mx, s);
     }
   } else {
     int j = t;
     for (; j + 15 * T < m; j += 16 * T) {
       float y[16];
 #pragma unroll
-      for (int q = 0; q < 16; ++q) y[q] = xr[j + q * T] + vm[j + q * T];
+      for (int q = 0; q < 16; ++q) y[q] = xr[j + q * T] + (kZero ? 0.f : vm[j + q * T]);
       online_chunk<16>(y, mx, s);
     }
     for (; j < m; j += T) {
-      const float y = xr[j] + vm[j];
+      const float y = xr[j] + (kZero ? 0.f : vm[j]);
       online_chunk<1>(&y, mx, s);
     }
   }
 }
 
 // Row step of one stage of rk rows (row stride m) starting at xs: u[r] for
-// r < rk. Each row goes to W = kWarps / rows warps (at least 1); red_m and
-// red_s hold rows x W warp partials, which a warp per row combines.
+// r < rk; vm nullptr: v = 0. Each row goes to W = kWarps / rows warps (at
+// least 1); red_m and red_s hold rows x W warp partials, which a warp per
+// row combines.
 __device__ __forceinline__ void row_step(const float* __restrict__ xs,
                                          const float* __restrict__ vm, float* u, float* red_m,
                                          float* red_s, int rk, int m, int rows, int vec_ok) {
@@ -226,10 +240,17 @@ __device__ __forceinline__ void row_step(const float* __restrict__ xs,
   for (int r = rg; r < rk && rg < rgroups; r += rgroups) {
     const float* xr = xs + (size_t)r * m;
     float mx = -INFINITY, s = 0.f;
-    if (vec_ok) {
-      row_share<true>(xr, vm, m, wi * 32 + lane, W * 32, mx, s);
+    const int t = wi * 32 + lane;
+    if (vm == nullptr) {
+      if (vec_ok) {
+        row_share<true, true>(xr, vm, m, t, W * 32, mx, s);
+      } else {
+        row_share<false, true>(xr, vm, m, t, W * 32, mx, s);
+      }
+    } else if (vec_ok) {
+      row_share<true, false>(xr, vm, m, t, W * 32, mx, s);
     } else {
-      row_share<false>(xr, vm, m, wi * 32 + lane, W * 32, mx, s);
+      row_share<false, false>(xr, vm, m, t, W * 32, mx, s);
     }
     const float mw = warp_max(mx);
     s = (mx == -INFINITY) ? 0.f : s * expf(mx - mw);
@@ -346,6 +367,9 @@ __device__ __forceinline__ void column_step_regs(const float* __restrict__ xs,
 // Grid (G, groups), kThreads threads, cooperative: block (blockIdx.x,
 // blockIdx.y) owns rows [blockIdx.x * band, + band) of matrices blockIdx.y,
 // blockIdx.y + groups, ... Scratch: part (b, G, m) of (max, sum) pairs.
+// v nullptr: the column potential is 0. v_out nullptr: the (m, s) mode,
+// the fold writes m_out and s_out; otherwise the v mode, it writes the new
+// column potential v_out = -(m + log s) (the caller ping-pongs v and v_out).
 // kRing: the band streams through `stages` shared-memory stages of `rows`
 // rows (TMA); otherwise it is read in place, stages of `rows` rows. KQ > 0
 // (ring, float4 rows, m / 4 <= KQ * kThreads): the column accumulators live
@@ -353,8 +377,8 @@ __device__ __forceinline__ void column_step_regs(const float* __restrict__ xs,
 template <bool kRing, int KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 local_step(const float* __restrict__ x, const float* __restrict__ v, float* __restrict__ m_out,
-           float* __restrict__ s_out, float2* __restrict__ part, int b, int n, int m, int band,
-           int rows, int stages, int vec_ok) {
+           float* __restrict__ s_out, float* __restrict__ v_out, float2* __restrict__ part,
+           int b, int n, int m, int band, int rows, int stages, int vec_ok) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) float smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -394,7 +418,7 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
     if (mat < b) {
       const float* xb = x + ((size_t)mat * n + (size_t)min(row0, n)) * m;
       float2* pb = part + ((size_t)mat * n_blocks + blk) * m;
-      const float* vm = v + (size_t)mat * m;
+      const float* vm = v ? v + (size_t)mat * m : nullptr;
       float2* acc = pb;
       if (kRing) {
         if (tid == 0) {
@@ -412,7 +436,7 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
           }
         }
         for (int j = tid; j < m; j += kThreads) {
-          vs[j] = vm[j];
+          vs[j] = vm ? vm[j] : 0.f;
           if (KQ == 0) acc_s[j] = make_float2(-INFINITY, 0.f);
         }
         vm = vs;
@@ -495,8 +519,13 @@ local_step(const float* __restrict__ x, const float* __restrict__ v, float* __re
         if (tid < cc) {
           float mx = fold_m[tid], s = fold_s[tid];
           for (int g = 1; g < Q; ++g) combine(fold_m[g * cc + tid], fold_s[g * cc + tid], mx, s);
-          m_out[(size_t)mat * m + jc + tid] = mx;
-          s_out[(size_t)mat * m + jc + tid] = s;
+          const size_t o = (size_t)mat * m + jc + tid;
+          if (v_out) {
+            v_out[o] = -(mx + logf(s));
+          } else {
+            m_out[o] = mx;
+            s_out[o] = s;
+          }
         }
         __syncthreads();
       }
@@ -523,6 +552,27 @@ int check_plan(int b, int n, int m, int blocks, int groups, int band, int rows, 
     return (int)cudaErrorInvalidValue;
   }
   return 0;
+}
+
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// One cooperative launch of the kernel of a checked plan; vec_ok is the
+// caller's (float4 rows: m % 4 == 0 and every row pointer 16-byte aligned).
+int launch_step(const float* x, const float* v, float* m_out, float* s_out, float* v_out,
+                float* part, int b, int n, int m, int blocks, int groups, int band, int rows,
+                int stages, int vec_ok, cudaStream_t stream) {
+  const int quads = (m / 4 + kThreads - 1) / kThreads;
+  const int kq = (stages > 0 && vec_ok && quads <= kMaxKQ) ? quads : 0;
+  float2* part2 = reinterpret_cast<float2*>(part);
+  void* args[] = {&x,  &v, &m_out, &s_out, &v_out, &part2,  &b,
+                  &n,  &m, &band,  &rows,  &stages, &vec_ok};
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(stages, kq), dim3(blocks, groups, 1),
+                                              dim3(kThreads, 1, 1), args,
+                                              smem_bytes(m, rows, stages), stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -569,20 +619,38 @@ int otgan_local_step(const float* x, const float* v, float* m_out, float* s_out,
                      void* stream_ptr) {
   int err = check_plan(b, n, m, blocks, groups, band, rows, stages);
   if (err != 0) return err;
-  int vec_ok = (m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                reinterpret_cast<uintptr_t>(v) % 16 == 0)
-                   ? 1
-                   : 0;
-  const int quads = (m / 4 + kThreads - 1) / kThreads;
-  const int kq = (stages > 0 && vec_ok && quads <= kMaxKQ) ? quads : 0;
-  float2* part2 = reinterpret_cast<float2*>(part);
-  void* args[] = {&x, &v, &m_out, &s_out, &part2, &b, &n, &m, &band, &rows, &stages, &vec_ok};
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(stages, kq), dim3(blocks, groups, 1),
-                                              dim3(kThreads, 1, 1), args,
-                                              smem_bytes(m, rows, stages),
-                                              static_cast<cudaStream_t>(stream_ptr));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const int vec_ok = (m % 4 == 0 && aligned16(x) && aligned16(v)) ? 1 : 0;
+  return launch_step(x, v, m_out, s_out, nullptr, part, b, n, m, blocks, groups, band, rows,
+                     stages, vec_ok, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The whole column-potential loop on `stream` (TPU kernel 1 above the grid
+// kernel's ceiling): n_iters Sinkhorn iterations on x (b, n, m) from v = 0,
+// one cooperative launch of the kernel's v mode an iteration, the column
+// potential ping-ponging between v and v_next (b, m) so that the last
+// iteration writes v; part (b, blocks, m, 2) is scratch; all float32,
+// allocated by the caller. The plan is step_plan's on the whole (b, n, m),
+// checked here once before the first launch. Returns 0, a cudaError_t or
+// kErrNotResident.
+int otgan_col_potential(const float* x, float* v, float* v_next, float* part, int b, int n,
+                        int m, int blocks, int groups, int band, int rows, int stages,
+                        int n_iters, void* stream_ptr) {
+  if (n_iters < 0) return (int)cudaErrorInvalidValue;
+  int err = otgan_local_step_prepare(b, n, m, blocks, groups, band, rows, stages);
+  if (err != 0) return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_iters == 0) return (int)cudaMemsetAsync(v, 0, sizeof(float) * (size_t)b * m, stream);
+  const int vec_ok =
+      (m % 4 == 0 && aligned16(x) && aligned16(v) && aligned16(v_next)) ? 1 : 0;
+  const float* v_in = nullptr;  // the first iteration reads v = 0
+  for (int it = 0; it < n_iters; ++it) {
+    float* v_out = (n_iters - 1 - it) % 2 == 0 ? v : v_next;
+    err = launch_step(x, v_in, nullptr, nullptr, v_out, part, b, n, m, blocks, groups, band,
+                      rows, stages, vec_ok, stream);
+    if (err != 0) return err;
+    v_in = v_out;
+  }
+  return 0;
 }
 
 const char* otgan_step_error_string(int err) {

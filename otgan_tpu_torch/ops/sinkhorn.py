@@ -17,18 +17,22 @@ matrix shape and the card's SM count and shared memory, never by a failed
 build or launch:
 
 1. the resident kernel (``ops/sinkhorn_resident_cuda.py``: one thread-block
-   cluster a matrix) for matrices of at most ``RESIDENT_TIER_CELLS`` cells;
+   cluster a matrix) for matrices of at most ``RESIDENT_TIER_CELLS`` cells
+   (512^2);
 2. the grid kernel (``ops/sinkhorn_grid_cuda.py``: the matrix held in the
    shared memory of the whole card) for every larger matrix it holds, up to
    2640^2 on an H100 (the reference batch 5000's 2500^2 included);
-3. the column-potential kernel (``ops/sinkhorn_cuda.py``, two launches per
-   iteration) above that, e.g. batch 8000's 4000^2.
+3. the column-potential loop (``ops/sinkhorn_cuda.py``) above that, e.g.
+   batch 8000's 4000^2: the row-sharded matcher's local-step kernel on the
+   whole matrix in its v mode, one launch an iteration from one C call a
+   match, the softmax and entropy in torch.
 
 The first two are one launch per match, softmax and entropy included. The
-boundary between them is measured (``measure_grid.py`` on an H100 at 6 x
-N^2, lam 500, 500 iterations; PERF.md): the resident kernel is faster at
-128^2 (1.61 vs 2.87 ms) and 256^2 (2.66 vs 2.91 ms), the grid kernel from
-384^2 on (3.28 vs 4.00 ms; 5.69 vs 8.81 ms at 768^2).
+boundary between them is measured (``measure_resident.py`` on an H100 80GB
+HBM3 at 700 W, 6 x N^2, lam 500, 500 iterations, ms per match, resident /
+grid; PERF.md): 0.724 / 2.919 at 128^2, 1.437 / 2.908 at 256^2, 2.631 /
+3.329 at 384^2, 3.566 / 3.694 at 512^2, then the grid kernel: 5.757 / 5.700
+at 6 x 768^2 and 5.744 / 3.528 at 1 x 768^2.
 The name of the flag is kept so that a ``config.json`` reads in both
 packages.
 """
@@ -41,7 +45,7 @@ import torch
 
 # matrices of at most this many cells go to the resident tier (see
 # kernel_tier); the rest that the grid kernel holds go to it
-RESIDENT_TIER_CELLS = 256 * 256
+RESIDENT_TIER_CELLS = 512 * 512
 
 
 def _lse(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -104,7 +108,8 @@ def sinkhorn_log_tol(neg_lam_cost: torch.Tensor, max_iters: int, tol: float):
 def kernel_tier(n: int, m: int, limits: Tuple[int, int]) -> str:
     """The CUDA kernel that runs an ``(n, m)`` matrix on a card of
     ``limits`` (SM count, shared memory a block may use): ``"resident"``,
-    ``"grid"`` or ``"tiled"`` (the column-potential kernel). The resident
+    ``"grid"`` or ``"tiled"`` (the column-potential loop on the local-step
+    kernel, for what the grid kernel cannot hold). The resident
     kernel's own check stays: a matrix of few cells can still be too wide
     for its band, v and partials, e.g. (4, 16384)."""
     from otgan_tpu_torch.ops.sinkhorn_grid_cuda import grid_supported

@@ -1,27 +1,25 @@
-"""Sinkhorn column potential in a hand-written CUDA kernel for Hopper.
+"""Sinkhorn column potential above the grid kernel's ceiling, on the
+local-step kernel's v mode (hand-written CUDA for Hopper).
 
 Replaces ``otgan_tpu/ops/sinkhorn_pallas_tiled.py::_kernel`` (through
 ``_col_potential``) and its wrappers ``sinkhorn_assignment_tiled`` and
-``sinkhorn_assignment_padded``. The kernel is ``csrc/sinkhorn.cu``: per
-iteration one launch over (row panel, matrix) blocks folds each panel into
-column (max, rescaled sum) partials, and a second launch combines them into
-the new column potential. The host side of its C entry point runs the whole
-``n_iters`` loop, so one match is one ctypes call.
-
-What bounds it on an H100: at the reference batch 5000 a match is
-6 x 2500^2 f32 = 150 MB, three times the 50 MB L2, so every iteration
-streams the logits from device memory; 500 iterations read at least 75 GB,
-about 22 ms at 3.35 TB/s. At batch 256 (6 x 128^2) the 2 x n_iters launches
-set its time. This first version is simple and right: it reads each panel
-four times (only the first from device memory), and leaves TMA,
-shared-memory panels and CUDA graphs to a later change. Times are in PERF.md.
+``sinkhorn_assignment_padded`` for the matrices the grid kernel
+(``ops/sinkhorn_grid_cuda.py``) cannot hold, e.g. batch 8000's 6 x 4000^2.
+On a whole matrix one local step of the row-sharded matcher is one Sinkhorn
+iteration, so the kernel is ``csrc/sinkhorn_step.cu`` in its v mode: the
+fold writes the new column potential instead of the (max, sum) partials.
+Its C entry ``otgan_col_potential`` runs the whole ``n_iters`` loop, one
+cooperative launch an iteration, so a match is one ctypes call; the plan
+is ``sinkhorn_step_cuda.step_plan`` on the whole ``(b, N, M)``. The design
+and bound are in the kernel's header, the times in PERF.md.
 
 The TPU wrappers block-pad misaligned shapes to reach the (8, 128) tile
 grid; the CUDA kernel masks its ragged edges instead, so any (N, M) runs
 unpadded.
 
 ``col_potential`` takes the plain version only for a tensor on the CPU. For
-a CUDA tensor it launches the kernel or raises.
+a CUDA tensor it launches the kernel or raises. Its launches count here
+(``launches["kernel"]``, one a match), never as the local-step tiers'.
 """
 
 from __future__ import annotations
@@ -57,20 +55,22 @@ def col_potential_plain(x: torch.Tensor, n_iters: int) -> torch.Tensor:
 def _bind():
     from otgan_tpu_torch.kernels.build import load
 
-    lib = load("sinkhorn")
-    fn = lib.otgan_sinkhorn_col_potential
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib = load("sinkhorn_step")
+    fn = lib.otgan_col_potential
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.otgan_sinkhorn_rows_per_panel.argtypes = []
-    lib.otgan_sinkhorn_rows_per_panel.restype = ctypes.c_int
-    lib.otgan_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.otgan_cuda_error_string.restype = ctypes.c_char_p
+    lib.otgan_step_error_string.argtypes = [ctypes.c_int]
+    lib.otgan_step_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def col_potential_cuda(x: torch.Tensor, n_iters: int) -> torch.Tensor:
-    """Launch the CUDA kernel on ``x`` ``(b, N, M)`` f32 contiguous on the
-    card; returns ``v`` ``(b, M)``. Raises on a refused launch."""
+    """Launch the kernel on ``x`` ``(b, N, M)`` f32 contiguous on the
+    card, one launch an iteration; returns ``v`` ``(b, M)``. Raises on a
+    shape the card cannot plan and on a refused launch."""
+    from otgan_tpu_torch.ops.sinkhorn_grid_cuda import card_limits
+    from otgan_tpu_torch.ops.sinkhorn_step_cuda import step_plan
+
     if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 3
             and x.is_contiguous()):
         raise ValueError(
@@ -80,23 +80,25 @@ def col_potential_cuda(x: torch.Tensor, n_iters: int) -> torch.Tensor:
     b, n, m = x.shape
     if b == 0 or n == 0 or m == 0 or n_iters < 0:
         raise ValueError(f"empty shape {tuple(x.shape)} or n_iters {n_iters}")
-    if max(b, n, m) >= 2**31 or b > 65535:
-        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
+    if max(b, n, m) >= 2**31 or b * n * m >= 2**62:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
+    sms, smem = card_limits(x.device)
+    plan = step_plan(b, n, m, sms, smem)
+    if plan is None:
+        raise ValueError(f"no local-step plan for {tuple(x.shape)} on {sms} SMs of {smem} B")
     lib = _bind()
-    rows = lib.otgan_sinkhorn_rows_per_panel()
-    n_panels = -(-n // rows)
     with torch.cuda.device(x.device):
         v = torch.empty((b, m), device=x.device, dtype=torch.float32)
-        m_part = torch.empty((b, n_panels, m), device=x.device, dtype=torch.float32)
-        s_part = torch.empty_like(m_part)
+        v_next = torch.empty_like(v)
+        part = torch.empty((b, plan.blocks, m, 2), device=x.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.otgan_sinkhorn_col_potential(
-            x.data_ptr(), v.data_ptr(), m_part.data_ptr(), s_part.data_ptr(),
-            b, n, m, n_iters, stream,
-        )
+        err = lib.otgan_col_potential(
+            x.data_ptr(), v.data_ptr(), v_next.data_ptr(), part.data_ptr(), b, n, m,
+            plan.blocks, plan.groups, plan.band, plan.stage_rows, plan.stages, n_iters, stream)
     if err != 0:
-        msg = lib.otgan_cuda_error_string(err).decode()
-        raise RuntimeError(f"sinkhorn CUDA kernel failed: {msg} ({err})")
+        msg = lib.otgan_step_error_string(err).decode()
+        raise RuntimeError(f"column-potential kernel failed at {tuple(x.shape)}, {plan}: "
+                           f"{msg} ({err})")
     launches["kernel"] += 1
     return v
 

@@ -18,8 +18,10 @@ After each epoch it writes 100 samples of the generator and of its EMA
 latents seeded by the epoch. Every ``--save_every_epochs`` epochs (not the
 first epoch of a run) it writes the full train state,
 ``otgan_state-<epoch>.npz`` (``utils/checkpoint.py``; retention, slot dtype
-and background writes from the config). ``--load_params`` resumes from
-``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
+and background writes from the config), and beside it ``distances.npz``,
+the per-epoch mean distances of the run (an epoch without a step of one
+kind logs that kind's last mean with ``dist_*_carried``). ``--load_params``
+resumes from ``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
 after it; the data generator starts afresh from ``--seed``, as in the JAX
 trainer. Inception/FID eval and host prefetch come in later slices.
 
@@ -161,6 +163,8 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
     with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger:
         logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread)
         launches0 = kernel_launches()
+        mean_dist_gen: List[Optional[float]] = []
+        mean_dist_disc: List[Optional[float]] = []
         start_time = time.time()
         for epoch in range(start_epoch, cfg.max_epochs):
             begin = time.time()
@@ -180,11 +184,18 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                                step_ms=(time.perf_counter() - t0) * 1e3)
                     steps.append(rec)
                     logger.log(state.step, **{k: v for k, v in rec.items() if k != "step"})
+            # an epoch with no step of a kind (short epochs under the 5:1
+            # schedule) carries that kind's last epoch mean, flagged; before
+            # the first such step the key is left out and the history holds
+            # None, which save_distances backfills (otgan_tpu/train.py:481-509)
             vals = {}
-            if dist_gen:
-                vals["dist_gen"] = float(torch.stack(dist_gen).mean())
-            if dist_disc:
-                vals["dist_disc"] = float(torch.stack(dist_disc).mean())
+            for key, kind, hist in (("dist_gen", dist_gen, mean_dist_gen),
+                                    ("dist_disc", dist_disc, mean_dist_disc)):
+                if kind:
+                    vals[key] = float(torch.stack(kind).mean())
+                elif hist and hist[-1] is not None:
+                    vals[key], vals[f"{key}_carried"] = hist[-1], True
+                hist.append(vals.get(key))
             launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
             logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
                        entropy=float(torch.stack(entropies).mean()), launches=launches, **vals)
@@ -200,6 +211,7 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                     cfg.save_dir, state, epoch, slot_dtype=cfg.checkpoint_slot_dtype,
                     async_write=cfg.async_checkpoint, max_to_keep=cfg.max_checkpoints_to_keep,
                     keep_every_hours=cfg.keep_checkpoint_every_n_hours)
+                logger.save_distances(mean_dist_gen, mean_dist_disc)
                 print(f"saved {path}; elapsed hours {(time.time() - start_time) / 3600:.3f}; "
                       f"total updates {state.step}", flush=True)
     # every checkpoint reported as saved is on disk before train() returns

@@ -75,7 +75,7 @@ def test_zero_iterations_and_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_public_entry_launches_kernel_not_plain(cuda_device):
-    """The resident tier up to 256^2 cells, the grid tier above it while the
+    """The resident tier up to 512^2 cells, the grid tier above it while the
     card's shared memory holds the matrix, kernel 1 above that; no plain
     version on the card."""
     for mod in (sinkhorn_cuda, sinkhorn_resident_cuda, sinkhorn_grid_cuda):
@@ -92,9 +92,11 @@ def test_public_entry_launches_kernel_not_plain(cuda_device):
     assert sinkhorn_grid_cuda.launches == {"kernel": 1, "plain": 0}
     assert sinkhorn_cuda.launches == {"kernel": 0, "plain": 0}
     assert p.shape == (800, 800) and e.shape == ()
+    steps = dict(sinkhorn_step_cuda.launches)
     p, e = sinkhorn_assignment(_costs(1, 2700, 2700, 32).to(cuda_device)[0], 500.0, 20,
                                use_pallas=True)
     assert sinkhorn_cuda.launches == {"kernel": 1, "plain": 0}
+    assert sinkhorn_step_cuda.launches == steps  # kernel 1 counts its own launches
     assert sinkhorn_grid_cuda.launches == sinkhorn_resident_cuda.launches == {
         "kernel": 1, "plain": 0}
     assert p.shape == (2700, 2700) and e.shape == ()
@@ -237,10 +239,11 @@ def test_resident_kernel_matches_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("cluster", list(range(1, 17)))
 def test_resident_every_cluster_size(cuda_device, cluster):
-    """Any cluster size gives the same assignment: bands of 1 to 100 rows,
-    blocks that hold no rows (16 blocks for 100 rows of 7) included."""
+    """Any cluster size gives the same assignment: bands of 7 to 100 rows,
+    x in shared memory (up to 3 blocks) or in registers, blocks that hold
+    no rows (16 blocks for 100 rows of 7) included."""
     costs = _costs(2, 100, 130, 32).to(cuda_device)
     p, e = sinkhorn_resident_cuda.sinkhorn_resident_cuda(costs, 50.0, 200, cluster_size=cluster)
     p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 50.0, 200)
@@ -349,3 +352,84 @@ def test_grid_public_entry_at_batch_5000(cuda_device):
     p_k1, e_k1 = sinkhorn_cuda.sinkhorn_assignment_kernel(costs, 500.0, 100)
     torch.testing.assert_close(p, p_k1, atol=1e-5, rtol=0)
     torch.testing.assert_close(e, e_k1, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 128, 128), (6, 256, 256), (6, 100, 228), (1, 768, 768)])
+def test_resident_tier_shapes_every_cluster_bitwise(cuda_device, shape):
+    """At the tier's shapes and 768^2, on every cluster size that fits: lam
+    500, 500 iterations (100 on the rectangle, whose potentials drift), P
+    within 1e-5 and entropy within 1e-4 of the plain version, and two calls
+    bitwise equal (every fold in a fixed order)."""
+    b, n, m = shape
+    iters = 500 if n == m else 100
+    costs = _costs(b, n, m, 64, seed=3).to(cuda_device)
+    p_ref, e_ref = sinkhorn_resident_cuda.sinkhorn_resident_plain(costs, 500.0, iters)
+    for cs in range(1, 17):
+        if sinkhorn_resident_cuda.resident_plan(n, m, cs) is None:
+            continue
+        p, e = sinkhorn_resident_cuda.sinkhorn_resident_cuda(costs, 500.0, iters, cluster_size=cs)
+        p2, e2 = sinkhorn_resident_cuda.sinkhorn_resident_cuda(costs, 500.0, iters,
+                                                               cluster_size=cs)
+        torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+        torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+        assert torch.equal(p, p2) and torch.equal(e, e2), cs
+
+
+@pytest.mark.cuda
+def test_resident_barrier_loop(cuda_device):
+    """The cluster barrier alone runs on the planned clusters and refuses a
+    cluster the card has no size for."""
+    sinkhorn_resident_cuda.barrier_loop_cuda(8, 6, 500)
+    sinkhorn_resident_cuda.barrier_loop_cuda(16, 6, 500)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="barrier loop failed"):
+        sinkhorn_resident_cuda.barrier_loop_cuda(17, 6, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,iters", [((6, 4000, 4000), 20), ((2, 2700, 2650), 30)])
+def test_col_potential_above_the_ceiling_matches_plain(cuda_device, shape, iters):
+    """Kernel 1 above the grid kernel's ceiling (the local-step kernel's v
+    mode) on the single-device matcher's shape at batch 8000 and on a
+    ragged one: lam 500, P within 1e-5 and entropy within 1e-4 of the plain
+    version, v bitwise equal across two calls, one launch counted, no
+    local-step tier counted."""
+    from otgan_tpu_torch.ops.sinkhorn import kernel_tier
+
+    b, n, m = shape
+    assert kernel_tier(n, m, sinkhorn_grid_cuda.card_limits(cuda_device)) == "tiled"
+    x = sinkhorn_cuda.scaled_logits(_costs(b, n, m, 64, seed=4).to(cuda_device), 500.0)
+    before, steps = dict(sinkhorn_cuda.launches), dict(sinkhorn_step_cuda.launches)
+    v = sinkhorn_cuda.col_potential(x, iters).clone()
+    torch.cuda.synchronize()
+    assert sinkhorn_cuda.launches == {"kernel": before["kernel"] + 1, "plain": before["plain"]}
+    assert sinkhorn_step_cuda.launches == steps
+    assert torch.equal(v, sinkhorn_cuda.col_potential(x, iters))
+    v_ref = sinkhorn_cuda.col_potential_plain(x, iters)
+    p, e = assignment_and_entropy(x + v[:, None, :])
+    p_ref, e_ref = assignment_and_entropy(x + v_ref[:, None, :])
+    torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_col_potential_is_one_device_kernel_an_iteration(cuda_device):
+    """Under torch.profiler a 3-iteration call launches exactly 3 device
+    kernels, all the local-step kernel (no memset, no combine launch). A
+    profile whose trace holds no device event at all is taken again, at
+    most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand(6, 1000, 1000, device=cuda_device) * -50.0
+    sinkhorn_cuda.col_potential_cuda(x, 3)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sinkhorn_cuda.col_potential_cuda(x, 3)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 3 and all("local_step" in k for k in kernels), kernels

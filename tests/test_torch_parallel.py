@@ -179,11 +179,11 @@ def test_matrix_parallel_matches_jax_and_global(world4, single):
 
 
 def test_matrix_parallel_takes_the_grid_tier(world4):
-    """Whole 300^2 matrices, above the resident tier, on 4 ranks: each rank
-    solves 2 of the 6 (8 slots, matrices 0 and 1 twice), each through the
-    grid tier's plain version and no other tier, and the outputs are the
-    global matcher's."""
-    B = 600
+    """Whole 550^2 matrices, above the resident tier (512^2 cells), on 4
+    ranks: each rank solves 2 of the 6 (8 slots, matrices 0 and 1 twice),
+    each through the grid tier's plain version and no other tier, and the
+    outputs are the global matcher's."""
+    B = 1100
     fa, fb = _features(11, B), _features(12, B)
     res = world4.run("matrix_matcher", fa=fa, fb=fb, lam=50.0, iters=20)
     rounds, _ = matching_matrix._owner_counts(6, 4)

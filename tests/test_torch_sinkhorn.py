@@ -162,3 +162,25 @@ def test_tol_exit_matches_jax():
     torch.testing.assert_close(p2, p, atol=1e-6, rtol=0)
     _, capped = sinkhorn_log_tol(torch.from_numpy(x), 7, tol=0.0)
     assert capped.tolist() == [7, 7]
+
+
+def test_above_the_grid_ceiling_counts_col_potential_not_local_steps():
+    """``use_pallas`` on the CPU at 2641^2, above the grid kernel's ceiling
+    on an H100: kernel 1's plain version, counted once as
+    ``col_potential_plain`` in the trainer's launches, and no local-step
+    launch of either tier, though the card runs it on the local-step
+    kernel."""
+    from otgan_tpu_torch.ops import sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
+    from otgan_tpu_torch.ops.sinkhorn import kernel_tier
+    from otgan_tpu_torch.ops.sinkhorn_grid_cuda import H100_LIMITS
+    from otgan_tpu_torch.train import kernel_launches
+
+    assert kernel_tier(2641, 2641, H100_LIMITS) == "tiled"
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+        mod.reset_launch_counts()
+    cost = torch.from_numpy(_cost(11, 2641, 2641, d=8))
+    p, e = sinkhorn_assignment(cost, 50.0, 1, use_pallas=True)
+    assert p.shape == (2641, 2641) and e.shape == ()
+    counts = kernel_launches()
+    assert counts.pop("col_potential_plain") == 1
+    assert not any(counts.values()), counts

@@ -92,14 +92,16 @@ def test_grid_plan_never_overfills(sms, n, m):
 def test_kernel_tier_by_shape():
     """resident / grid / kernel 1 at the DCGAN's batch 256, the reference
     batch 5000 and batch 8000, on an H100's limits; the measured boundary
-    between the first two (the toy's 256^2 resident, 384^2 and up grid);
+    between the first two (up to 512^2 resident, 768^2 and up grid);
     on a card of half the SMs 2500^2 no longer fits and goes to kernel 1;
     a matrix of few cells too wide for the resident kernel goes on."""
     assert kernel_tier(128, 128, H100) == "resident"
     assert kernel_tier(2500, 2500, H100) == "grid"
     assert kernel_tier(4000, 4000, H100) == "tiled"
     assert kernel_tier(256, 256, H100) == "resident"
-    assert kernel_tier(384, 384, H100) == "grid"
+    assert kernel_tier(384, 384, H100) == "resident"
+    assert kernel_tier(512, 512, H100) == "resident"
+    assert kernel_tier(513, 512, H100) == "grid"
     assert kernel_tier(768, 768, H100) == "grid"
     assert kernel_tier(2500, 2500, (66, H100[1])) == "tiled"
     assert kernel_tier(4, 16384, H100) == "grid" and not rc.resident_supported(4, 16384)

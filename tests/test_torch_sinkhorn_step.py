@@ -217,3 +217,78 @@ def test_kernel_order_matches_plain_and_pallas(shape, blocks, stages):
     xp, vp = _padded(x, v, rows, cols)
     _check(m, s, *jax_step.streaming_local_sinkhorn_step(xp, vp, panel=8, interpret=True,
                                                           n_rows=n_loc, n_cols=n), n)
+
+
+# ---- the v mode: kernel 1 above the grid kernel's ceiling ----
+
+@pytest.mark.parametrize("shape", [(6, 4000, 4000), (2, 2700, 2650), (1, 2641, 2641),
+                                   (2, 10, 60000)], ids=lambda s: "x".join(map(str, s)))
+def test_whole_matrix_plan_of_the_v_mode(shape):
+    """``col_potential_cuda`` plans the whole (b, N, M) with ``step_plan``:
+    every row in one block, within shared memory; the ring where a stage
+    fits, in place for rows too wide (60000 columns)."""
+    b, n, m = shape
+    plan = st.step_plan(b, n, m)
+    assert [r for blk in _block_rows(plan, n) for r in blk] == list(range(n))
+    assert plan.smem == st.smem_bytes(m, plan.stage_rows, plan.stages) <= _SMEM
+    assert (plan.stages > 0) == (m < 14254)
+    if shape == (6, 4000, 4000):
+        assert (plan.blocks, plan.band, plan.groups) == (22, 182, 6)
+
+
+def _model_col_potential(x, iters, plan):
+    """The v mode's loop: from v = 0, each iteration one local step in the
+    kernel's order (``_model_step``) and the fold's v = -(m + log s)."""
+    v = torch.zeros((x.shape[0], x.shape[2]))
+    for _ in range(iters):
+        m, s = _model_step(x, v, plan)
+        v = -(m + torch.log(s))
+    return v
+
+
+@pytest.mark.parametrize("shape,lam,iters,blocks", [
+    ((2, 64, 128), 50.0, 30, None), ((3, 37, 50), 50.0, 20, 64), ((1, 100, 228), 50.0, 25, 3),
+    ((1, 48, 48), 500.0, 200, None)], ids=["default", "idle-blocks", "three-blocks", "lam500"])
+def test_v_mode_order_matches_plain_pallas_and_oracle(shape, lam, iters, blocks):
+    """The model of the v mode's order against ``col_potential_plain`` (v
+    within 1e-5 of its magnitude, P within 1e-5), the Pallas
+    ``_col_potential`` in interpret mode (v on the shapes it takes as they
+    are; P through ``sinkhorn_assignment_padded`` on all, 1e-4 at lam 500)
+    and the float64 oracle (P within 1e-5)."""
+    from otgan_tpu.ops.sinkhorn_pallas_tiled import (
+        _col_potential,
+        _pick_panel,
+        sinkhorn_assignment_padded,
+    )
+    from otgan_tpu_torch.ops.sinkhorn import assignment_and_entropy
+    from otgan_tpu_torch.ops.sinkhorn_cuda import col_potential_plain, scaled_logits
+    from tests.reference_impl import sinkhorn_np
+
+    b, n, m = shape
+    rng = np.random.default_rng(n + m)
+    fa = rng.standard_normal((b, n, 32)).astype(np.float32)
+    fb = rng.standard_normal((b, m, 32)).astype(np.float32)
+    fa /= np.linalg.norm(fa, axis=-1, keepdims=True)
+    fb /= np.linalg.norm(fb, axis=-1, keepdims=True)
+    costs = 1.0 - fa @ fb.transpose(0, 2, 1)
+    x = scaled_logits(torch.from_numpy(costs), lam)
+    plan = st.step_plan(b, n, m, blocks=blocks)
+    v = _model_col_potential(x, iters, plan)
+    v_ref = col_potential_plain(x, iters)
+    scale = max(1.0, float(v_ref.abs().max()))
+    torch.testing.assert_close(v, v_ref, atol=1e-5 * scale, rtol=0)
+    p, e = assignment_and_entropy(x + v[:, None, :])
+    p_ref, e_ref = assignment_and_entropy(x + v_ref[:, None, :])
+    torch.testing.assert_close(p, p_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(e, e_ref, atol=1e-4, rtol=0)
+    band = 1e-4 if lam == 500.0 else 1e-5
+    for i in range(b):
+        if _pick_panel(n, m) is not None:  # a shape the Pallas kernel takes as it is
+            v_j = np.asarray(_col_potential(jnp.asarray(x[i].numpy()), iters, interpret=True))
+            np.testing.assert_allclose(v[i].numpy(), v_j[0], atol=1e-5 * scale)
+        p_j, e_j = sinkhorn_assignment_padded(jnp.asarray(costs[i]), lam, iters)
+        np.testing.assert_allclose(p[i].numpy(), np.asarray(p_j), atol=band)
+        assert abs(float(e[i]) - float(e_j)) < 1e-4
+        p_o, e_o = sinkhorn_np(costs[i], lam, iters)
+        np.testing.assert_allclose(p[i].numpy(), p_o, atol=1e-5)
+        assert abs(float(e[i]) - e_o) < 1e-4
