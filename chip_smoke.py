@@ -26,6 +26,21 @@ Run from the root of a checkout, it
    global batch 5000, bf16 model compute), with every launch counter set
    to 0 just before and read just after: the grid kernel must have
    launched once a step and nothing else, no plain version;
+4b. runs the same cycle again with ``--profile_dir`` and ``--debug_nans``,
+   as its own process: it exits 0, its Chrome trace holds 6 device events of the
+   grid kernel and every step and phase span (a trace with no device event
+   is taken again, at most three times); prints the ten device kernels
+   with the most time and the device time of the kernels launched in each
+   phase span (``features``, ``match``, ``loss_backward``, ``update``);
+4c. drives the DenseNet path, ``--preset train_py --model densenet
+   --grad_accum 4`` (16 layers a block, 16 filters, features d 7296;
+   microbatches of 1250, from ``measure_densenet.py``'s table) for one 5:1
+   cycle at batch 5000, counters zeroed just before: 6 grid launches and
+   nothing else, finite dist and entropy, the peak memory printed; then one
+   microbatch's gradients of the generator and critic under ``--remat``
+   and under ``--remat_policy gen_u1,gen_u2,disc_d2,disc_d3`` against the
+   plain models' (float32, cuDNN deterministic): max relative difference
+   <= 1e-6;
 5. holds the row-sharded matcher's local-step kernel, under both tiers
    (fused and stream, one kernel that both launch), against its plain version,
    at the row blocks one rank holds in a multi-GPU run: (6, 313, 2500)
@@ -123,6 +138,11 @@ OPS_PER_CELL_ITER = 8
 EXPS_PER_CELL_ITER = 2
 MUFU_PER_SM_CLOCK = 16
 TOY_EPOCH_BATCHES = 8  # batches of the toy run's short epochs
+# the DenseNet cycle's --grad_accum: microbatches of 1250, the largest that
+# fits both step kinds on an 80 GB card (measure_densenet.py: 65.3 GB for
+# the generator step; 2500 runs out of memory; PERF.md 5)
+DENSENET_ACCUM = 4
+REMAT_POLICY = "gen_u1,gen_u2,disc_d2,disc_d3"
 
 
 def card_line() -> str:
@@ -899,6 +919,151 @@ def dcgan_b256_phase(card: str) -> dict:
     return res
 
 
+def trace_phase(card: str) -> dict:
+    """One 5:1 cycle of ``--preset train_py`` under ``--profile_dir`` and
+    ``--debug_nans``, run as its own process (the CLI, as a user runs it; a
+    profile leaves this process's later profiles without device events).
+    The trace is read back (``utils/tracing.py``), and the run is taken
+    again when the trace holds no device event; the launches are the ones
+    rank 0 logs to ``metrics.jsonl``."""
+    from otgan_tpu_torch.utils.tracing import PHASE_SPANS, summarize, trace_path
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_trace")
+    trace_dir = os.path.join(run_dir, "trace")
+    for attempt in range(3):
+        shutil.rmtree(run_dir, ignore_errors=True)
+        out = subprocess.run(
+            [sys.executable, "-m", "otgan_tpu_torch.train", "--preset", "train_py",
+             "--synthetic_data", "--synthetic_size", "10000", "--max_epochs", "3",
+             "--log_every_steps", "1", "--save_dir", run_dir, "--profile_dir", trace_dir,
+             "--debug_nans"], cwd=REPO, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"the traced cycle failed (rc {out.returncode}):\n"
+                                 f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        path = trace_path(trace_dir)
+        summary = summarize(path)
+        if summary["kernels"]:
+            break
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "kind" in r]
+    launches = [r for r in records if "epoch" in r][-1]["launches"]
+    grid_events = sum(n for name, (n, _) in summary["kernels"].items() if "grid_sinkhorn" in name)
+    spans = summary["spans"]
+    res = dict(attempts=attempt + 1, trace_bytes=os.path.getsize(path), grid_device_events=grid_events,
+               launches=launches, steps_ms=[r["step_ms"] for r in steps],
+               spans_host_ms=spans, phase_device_ms=summary["phase_device_ms"],
+               device_ms=summary["device_ms"], top=summary["top"])
+    print(f"trace of one 5:1 cycle at batch {BATCH} (--profile_dir, --debug_nans) on {card}: "
+          f"{res['trace_bytes']} bytes, {grid_events} grid kernel events, device time "
+          f"{summary['device_ms']:.1f} ms; device ms of the kernels launched in each phase span "
+          + json.dumps(summary["phase_device_ms"]) + "; host ms (count) of each span "
+          + json.dumps(spans) + f"; step ms {res['steps_ms']}", flush=True)
+    for name, count, ms in summary["top"]:
+        print(f"  trace top device kernel: {ms:10.3f} ms {count:6d}x {name[:120]}", flush=True)
+    if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
+        raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError("non-finite dist or entropy in the traced cycle")
+    check_tier_path(launches, "grid", "the traced cycle (rank 0's metrics.jsonl)", want=6)
+    if grid_events != 6:
+        raise AssertionError(f"the trace holds {grid_events} grid kernel events, not 6")
+    if spans["disc_step"][0] != 1 or spans["gen_step"][0] != 5 or any(
+            spans[name][0] < 6 for name in PHASE_SPANS):
+        raise AssertionError(f"the trace lacks step or phase spans: {spans}")
+    return res
+
+
+def densenet_remat_check(card: str, mb: int = 64) -> dict:
+    """One microbatch's gradients of the DenseNet generator and critic (full
+    width, float32, cuDNN deterministic) under ``--remat`` and under
+    ``REMAT_POLICY``, against the plain models': max relative difference
+    (max |a - b| / max |b| over each parameter) <= 1e-6."""
+    import torch
+    from otgan_tpu_torch.models import densenet
+    from otgan_tpu_torch.nn.layers import reset_parameters
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    try:
+        variants = {"plain": {}, "remat": dict(remat=True),
+                    "policy": dict(remat=True, remat_policy=REMAT_POLICY)}
+        models = {k: (densenet.make_generator(**kw), densenet.make_discriminator(**kw))
+                  for k, kw in variants.items()}
+        rng = torch.Generator().manual_seed(7)
+        for module in models["plain"]:
+            reset_parameters(module, rng)
+        for k, (g, d) in models.items():
+            g.load_state_dict(models["plain"][0].state_dict())
+            d.load_state_dict(models["plain"][1].state_dict())
+            g.cuda(), d.cuda()
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        z = densenet.sample_latent(mb, gen, "cuda")
+        x = torch.rand((mb, 32, 32, 3), generator=gen, device="cuda") * 2.0 - 1.0
+        ct_fake, ct_data = (torch.randn((mb, 7296), generator=gen, device="cuda") for _ in range(2))
+        grads = {}
+        for k, (g, d) in models.items():
+            loss = torch.sum(d(g(z)) * ct_fake) + torch.sum(d(x) * ct_data)
+            grads[k] = torch.autograd.grad(loss, [*g.parameters(), *d.parameters()])
+        rel = {k: max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(grads[k], grads["plain"])) for k in ("remat", "policy")}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = flags
+    print(f"DenseNet remat at a microbatch of {mb}, float32, on {card}: max relative gradient "
+          f"difference to the plain models: --remat {rel['remat']:.3e}, --remat_policy "
+          f"{REMAT_POLICY} {rel['policy']:.3e}", flush=True)
+    if not all(v <= 1e-6 for v in rel.values()):
+        raise AssertionError(f"remat changes the DenseNet's gradients: {rel}")
+    return rel
+
+
+def densenet_phase(card: str) -> dict:
+    """One 5:1 cycle of ``--preset train_py --model densenet --grad_accum
+    DENSENET_ACCUM`` at batch 5000 (the grid tier at 6 x 2500^2, features d
+    7296), counters zeroed just before and read just after; then
+    :func:`densenet_remat_check`."""
+    import torch
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.models import densenet
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_densenet")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.time()
+    result = train_mod.main(["--preset", "train_py", "--model", "densenet", "--synthetic_data",
+                             "--synthetic_size", "10000", "--grad_accum", str(DENSENET_ACCUM),
+                             "--init_batch_size", "500", "--max_epochs", "3",
+                             "--log_every_steps", "1", "--save_dir", run_dir])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = train_mod.kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = result.steps
+    cycle_ms = sum(r["step_ms"] for r in steps)
+    for rec in steps:
+        print(f"DenseNet step {rec['step']} ({rec['kind']}): dist {rec['dist']:.6f} entropy "
+              f"{rec['entropy']:.6f} {rec['step_ms']:.1f} ms/step", flush=True)
+    print(f"DenseNet path (batch {BATCH}, --grad_accum {DENSENET_ACCUM}): {len(steps)} steps in "
+          f"{wall:.1f} s (init included); cycle {cycle_ms:.1f} ms ({BATCH * len(steps) / cycle_ms * 1e3:.0f}"
+          f" img/s); launches {launches}; peak memory {peak_gb:.2f} GB on {card}", flush=True)
+    if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
+        raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError("non-finite dist or entropy on the DenseNet path")
+    check_tier_path(launches, "grid", "the DenseNet path (batch 5000, 6 x 2500^2)", want=6)
+    with torch.no_grad():
+        imgs = result.state.gen(densenet.sample_latent(4, None, "cuda"))
+    if imgs.shape != (4, 32, 32, 3) or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError("the DenseNet generator's output after training is malformed")
+    del result, imgs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps_ms=[r["step_ms"] for r in steps], cycle_ms=cycle_ms,
+                img_per_s=BATCH * len(steps) / cycle_ms * 1e3, wall_s=wall, peak_gb=peak_gb,
+                grad_accum=DENSENET_ACCUM, remat_max_rel_diff=densenet_remat_check(card))
+
+
 def main() -> int:
     import torch
 
@@ -1015,6 +1180,11 @@ def main() -> int:
 
     del result, imgs
     torch.cuda.empty_cache()
+
+    # ---- 4b. the traced cycle; 4c. the DenseNet path ----
+    traced = trace_phase(card)
+    torch.cuda.empty_cache()
+    dn = densenet_phase(card)
 
     # ---- 5. the local-step kernels vs plain at one rank's blocks ----
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
@@ -1150,7 +1320,11 @@ def main() -> int:
         "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
         "launches": launches["grid"],
         "launches_from": "phase 4: the main path, one 5:1 cycle of --preset train_py at batch "
-                         "5000 (in-process counters)",
+                         "5000 (in-process counters); phase 4c: launches_densenet in one 5:1 "
+                         "cycle of the DenseNet at batch 5000; phase 4b: trace_device_events in "
+                         "the traced cycle",
+        "launches_densenet": dn["launches"]["grid"],
+        "trace_device_events": traced["grid_device_events"],
         "launches_per_step": launches["grid"] / len(steps),
         "max_abs_err": max(r["max_abs_dP"] for r in grid_held.values()),
         **grid_t,
@@ -1163,6 +1337,8 @@ def main() -> int:
         "main_path_ms_per_step": [r["step_ms"] for r in steps],
         "main_path_cycle_ms": cycle_ms,
         "main_path_peak_gb": peak_gb,
+        "trace_phase_device_ms": traced["phase_device_ms"],
+        "densenet_b5000": dn,
     }, {
         "name": "sinkhorn_col_potential",
         "route": "cuda",

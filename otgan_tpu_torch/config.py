@@ -9,7 +9,8 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 Knobs that only steer the TPU runtime (compile caches, host prefetch, the
 fused cycle program, AOT cache) are read and have no effect here.
 :meth:`TrainConfig.model_opts` is the JAX package's: the toy reads the
-default ``crelu`` as ``relu``, and every family takes ``compute_dtype``.
+default ``crelu`` as ``relu``, every family takes ``compute_dtype``,
+``remat`` and ``remat_policy``, and the DenseNet its block sizes.
 ``--num_devices`` K > 1 runs under ``torchrun --nproc_per_node K``, and
 ``--matching_layout`` and ``--sharded_matching`` pick its matcher.
 :func:`check_supported` rejects the options whose port comes in a later
@@ -123,19 +124,18 @@ class TrainConfig:
         nonlin = self.nonlinearity
         if self.model == "toy_mlp" and nonlin == "crelu":
             nonlin = "relu"
-        return {"nonlinearity": nonlin, "compute_dtype": self.compute_dtype}
+        common = {"nonlinearity": nonlin, "remat": self.remat,
+                  "compute_dtype": self.compute_dtype, "remat_policy": self.remat_policy}
+        if self.model == "densenet":
+            return {"layers_per_block": self.layers_per_block,
+                    "filters_per_layer": self.filters_per_layer, **common}
+        return common
 
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice of the port
     does not run yet, naming the slice that brings it."""
     later = []
-    if cfg.model not in ("dcgan", "toy_mlp"):
-        later.append(f"--model {cfg.model} (model-zoo slice)")
-    if cfg.remat or cfg.remat_policy:
-        later.append("--remat / --remat_policy (remat slice)")
-    if cfg.grad_accum > 1:
-        later.append("--grad_accum > 1 (grad-accum slice)")
     if cfg.multihost:
         later.append("--multihost (multi-host slice)")
     if cfg.checkpoint_backend != "npz":
@@ -148,10 +148,6 @@ def check_supported(cfg: TrainConfig) -> None:
             f"--matching_precision {cfg.matching_precision} (needs a "
             "measured Hopper lowering)"
         )
-    if cfg.profile_dir:
-        later.append("--profile_dir (tracing slice)")
-    if cfg.debug_nans:
-        later.append("--debug_nans (tracing slice)")
     if later:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(later) + " — see ROADMAP.md"

@@ -11,12 +11,30 @@ as eager PyTorch on one device:
 The 5:1 schedule (step ``s`` is a critic step when ``s % (n + 1) == 0``) is
 a Python loop in :meth:`Engine.cycle`. Step functions take the latent as an
 argument, so a test can feed the JAX package's draw; without one they draw
-the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0, 1)^256``) from the
-state's ``torch.Generator``. Matching is float32 with TF32 off; model
-matmuls and convs run in ``cfg.compute_dtype``. The model family (``--model
-dcgan|toy_mlp``) picks the generator, the critic, the latent distribution
-and the transport cost: cosine for the DCGAN, the scaled squared-Euclidean
-cost for the toy (``otgan_tpu/engine.py:77-79``), in every matcher build.
+the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0, 1)^256``, the
+DenseNet's tuple of four ``U(-1, 1)`` noises) from the state's
+``torch.Generator``. Matching is float32 with TF32 off; model matmuls and
+convs run in ``cfg.compute_dtype``. The model family (``--model
+dcgan|densenet|toy_mlp``) picks the generator, the critic, the latent
+distribution and the transport cost: cosine for the conv models, the scaled
+squared-Euclidean cost for the toy (``otgan_tpu/engine.py:77-79``), in
+every matcher build.
+
+``--grad_accum M`` (``otgan_tpu/engine.py:400-542``) microbatches the model
+around the full-batch match: the features of M microbatches without
+autograd, one global match, then each microbatch again under autograd,
+seeded by its rows of the match's stop-gradient cotangents, its gradients
+summed. The MED losses are sums over rows, so, given the same latents,
+the gradients are the full-batch step's. Only the (B, d) features, the
+critic step's fake images and one microbatch's activations are live at a
+time; the batch stays uint8 on the device until its microbatch is ingested.
+
+Each step is named for ``torch.profiler`` (``--profile_dir``): ``gen_step``
+or ``disc_step``, inside them ``features``, ``match``, ``loss_backward`` and
+``update``, and ``microbatch`` under accumulation. ``--debug_nans`` checks
+the loss, the gradients, ``dist`` and ``entropy`` of every step before its
+update and raises ``FloatingPointError`` at the first non-finite one;
+without it a step makes no check and no host sync.
 
 Several GPUs (counterpart of the JAX engine's mesh half): one process per
 GPU under ``torchrun``, each with the whole model. Every rank is handed the
@@ -43,6 +61,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
+from torch.profiler import record_function
 
 from otgan_tpu_torch.config import TrainConfig, check_supported
 from otgan_tpu_torch.models import get_model
@@ -104,6 +123,16 @@ class StepMetrics(NamedTuple):
     entropy: torch.Tensor  # mean Sinkhorn entropy (utils/matching.py:57)
 
 
+def map_latent(fn, z):
+    """``fn`` on a latent, or on each tensor of a tuple of latents (the
+    DenseNet's noises)."""
+    return tuple(fn(t) for t in z) if isinstance(z, (tuple, list)) else fn(z)
+
+
+def _as_tensor(t) -> torch.Tensor:
+    return torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+
+
 @contextlib.contextmanager
 def _frozen(module: nn.Module):
     """No parameter gradients for ``module`` (its input still gets one)."""
@@ -135,8 +164,16 @@ class Engine:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None and self.world > 1:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must be divisible by "
+                f"grad_accum {cfg.grad_accum}"
+            )
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.family = get_model(cfg.model)
+        self._latent_opts = (
+            {"filters_per_layer": cfg.filters_per_layer} if cfg.model == "densenet" else {}
+        )
         self.cost_fn = scaled_sqeuclidean_cost if cfg.model == "toy_mlp" else cosine_cost
         self.opt_init, opt_update = make_optimizer(cfg.optimizer)
         if cfg.optimizer == "nesterov":
@@ -319,8 +356,10 @@ class Engine:
         )
 
     def _local(self, t):
-        """This rank's rows of a global batch."""
-        return local_rows(t, self.rank, self.world) if self.world > 1 else t
+        """This rank's rows of a global batch (of each tensor of a tuple)."""
+        if self.world == 1:
+            return t
+        return map_latent(lambda x: local_rows(x, self.rank, self.world), t)
 
     def _distance(self, f_a, f_b, m: MatchedFeatures) -> torch.Tensor:
         if self.world == 1:
@@ -339,9 +378,10 @@ class Engine:
         opts = dict(self.cfg.model_opts(), compute_dtype=self.compute_dtype)
         return self.family.make_generator(**opts), self.family.make_discriminator(**opts)
 
-    def latents(self, batch: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``batch`` of the family's latents on the device, from ``generator``."""
-        return self.family.sample_latent(batch, generator, self.device)
+    def latents(self, batch: int, generator: Optional[torch.Generator] = None):
+        """``batch`` of the family's latents on the device, from ``generator``
+        (a tensor; the DenseNet's: a tuple of four)."""
+        return self.family.sample_latent(batch, generator, self.device, **self._latent_opts)
 
     # -- init (the data-dependent init really runs) --
     def init_state(self, seed: int, x_init) -> Tuple[TrainState, int]:
@@ -361,7 +401,8 @@ class Engine:
         x = self.ingest(x_init)
         if self.cfg.data_dependent_init and self.cfg.model != "toy_mlp":
             f = data_init(disc, x)
-            data_init(gen, self.family.sample_latent(x.shape[0], cpu_rng).to(self.device))
+            z = self.family.sample_latent(x.shape[0], cpu_rng, **self._latent_opts)
+            data_init(gen, map_latent(lambda t: t.to(self.device), z))
         else:
             with torch.no_grad():
                 f = disc(x)
@@ -392,62 +433,161 @@ class Engine:
         images cross as bytes and become ``x / 127.5 - 1`` (f32, then
         rounded once to the compute dtype) on the device; float images and
         toy points are cast, as the JAX package casts them at placement."""
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        x = x.to(self.device, non_blocking=True)
+        x = _as_tensor(x).to(self.device, non_blocking=True)
         if x.dtype == torch.uint8:
             x = x.float() / 127.5 - 1.0
         return x.to(self.compute_dtype)
 
-    def _latent(self, state: TrainState, batch: int, z) -> torch.Tensor:
+    def _latent(self, state: TrainState, batch: int, z):
         if z is None:
             return self.latents(batch, state.rng)
-        if isinstance(z, np.ndarray):
-            z = torch.from_numpy(z)
-        return z.to(self.device, torch.float32)
+        return map_latent(lambda t: _as_tensor(t).to(self.device, torch.float32), z)
+
+    def _microbatches(self, n: int) -> List[slice]:
+        """``cfg.grad_accum`` row slices of ``n`` local rows."""
+        m = self.cfg.grad_accum
+        bounds = [n * i // m for i in range(m + 1)]
+        return [slice(a, b) for a, b in zip(bounds, bounds[1:])]
+
+    def _check_finite(self, step: int, **quantities) -> None:
+        """``--debug_nans``: raise at the first non-finite quantity, in the
+        order given (each a tensor or a list of tensors)."""
+        for name, value in quantities.items():
+            ts = value if isinstance(value, (list, tuple)) else [value]
+            if not bool(torch.stack([torch.isfinite(t).all() for t in ts]).all()):
+                raise FloatingPointError(
+                    f"--debug_nans: non-finite {name} at step {step} (0-based)")
+
+    def _finish(self, state: TrainState, kind: str, grads, loss, distance, m) -> StepMetrics:
+        """Check (``--debug_nans``), then the optimizer step of ``kind``:
+        descent for the generator with its EMA, ascent for the critic
+        (``train.py:143``)."""
+        cfg = self.cfg
+        if cfg.debug_nans:
+            self._check_finite(state.step, loss=loss, gradient=list(grads), dist=distance,
+                               entropy=m.entropy)
+        module = state.gen if kind == "gen" else state.disc
+        params = dict(module.named_parameters())
+        with record_function("update"):
+            if kind == "gen":
+                self.opt_update(params, dict(zip(params, grads)), state.gen_opt,
+                                cfg.learning_rate_gen)
+                ema_update(state.gen_ema, params, cfg.ema_decay)
+            else:
+                self.opt_update(params, dict(zip(params, grads)), state.disc_opt,
+                                -cfg.learning_rate_disc)
+        state.step += 1
+        return StepMetrics(dist=distance, entropy=m.entropy)
 
     # -- generator update (train.py:108-113 descent; EMA at :223) --
     def gen_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
         """One generator step on the global batch ``x_data`` (and global
         latents ``z``, else drawn): each rank keeps its rows."""
-        cfg = self.cfg
-        z = self._local(self._latent(state, len(x_data), z))
-        x = self.ingest(self._local(x_data))
-        params = dict(state.gen.named_parameters())
-        with torch.no_grad():
-            f_dat = state.disc(x)
-        with _frozen(state.disc):
-            f_gen = state.disc(state.gen(z))
-        m = self._matcher(f_gen, f_dat)
-        loss = med_generator_loss(f_gen, m)
-        grads = self._sum_grads(torch.autograd.grad(loss, list(params.values())))
-        distance = self._distance(f_gen.detach(), f_dat, m)
-        del loss, f_gen
-        self.opt_update(params, dict(zip(params, grads)), state.gen_opt,
-                        cfg.learning_rate_gen)
-        ema_update(state.gen_ema, params, cfg.ema_decay)
-        state.step += 1
-        return state, StepMetrics(dist=distance, entropy=m.entropy)
+        with record_function("gen_step"):
+            z = self._local(self._latent(state, len(x_data), z))
+            x = self._local(x_data)
+            grad_fn = self._gen_grads_accum if self.cfg.grad_accum > 1 else self._gen_grads
+            grads, loss, distance, m = grad_fn(state, x, z)
+            return state, self._finish(state, "gen", grads, loss, distance, m)
+
+    def _gen_grads(self, state: TrainState, x, z):
+        params = list(state.gen.parameters())
+        with record_function("features"):
+            with torch.no_grad():
+                f_dat = state.disc(self.ingest(x))
+            with _frozen(state.disc):
+                f_gen = state.disc(state.gen(z))
+        with record_function("match"):
+            m = self._matcher(f_gen, f_dat)
+            distance = self._distance(f_gen.detach(), f_dat, m)
+        with record_function("loss_backward"):
+            loss = med_generator_loss(f_gen, m)
+            grads = self._sum_grads(torch.autograd.grad(loss, params))
+        return grads, loss.detach(), distance, m
+
+    def _gen_grads_accum(self, state: TrainState, x, z):
+        """``_gen_step_accum`` (``otgan_tpu/engine.py:432-487``)."""
+        params = list(state.gen.parameters())
+        mbs = self._microbatches(len(x))
+        x = _as_tensor(x).to(self.device, non_blocking=True)  # stays uint8 here
+        with record_function("features"), torch.no_grad():
+            f_gen, f_dat = [], []
+            for sl in mbs:
+                with record_function("microbatch"):
+                    f_gen.append(state.disc(state.gen(map_latent(lambda t: t[sl], z))))
+                    f_dat.append(state.disc(self.ingest(x[sl])))
+            f_gen, f_dat = torch.cat(f_gen), torch.cat(f_dat)
+        with record_function("match"):
+            m = self._matcher(f_gen, f_dat)
+            distance = self._distance(f_gen, f_dat, m)
+        del f_gen, f_dat
+        grads, loss = None, 0.0
+        with record_function("loss_backward"):
+            for sl in mbs:
+                with record_function("microbatch"), _frozen(state.disc):
+                    f = state.disc(state.gen(map_latent(lambda t: t[sl], z)))
+                    mb_loss = med_generator_loss(f, _rows(m, sl))
+                    g = torch.autograd.grad(mb_loss, params)
+                    grads = _accumulate(grads, g)
+                    loss = loss + mb_loss.detach()
+            grads = self._sum_grads(grads)
+        return grads, loss, distance, m
 
     # -- critic update: ascent via negative lr (train.py:115-130,143) --
     def disc_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
         """One critic step on the global batch, as :meth:`gen_step`."""
-        cfg = self.cfg
-        z = self._local(self._latent(state, len(x_data), z))
-        x = self.ingest(self._local(x_data))
-        x_fake = self.sample(state, z, ema=cfg.train_disc_against_ema)
-        params = dict(state.disc.named_parameters())
-        f_fake = state.disc(x_fake)
-        f_dat = state.disc(x)
-        m = self._matcher(f_fake, f_dat)
-        loss = med_discriminator_loss(f_fake, f_dat, m)
-        grads = self._sum_grads(torch.autograd.grad(loss, list(params.values())))
-        distance = self._distance(f_fake.detach(), f_dat.detach(), m)
-        del loss, f_fake, f_dat
-        self.opt_update(params, dict(zip(params, grads)), state.disc_opt,
-                        -cfg.learning_rate_disc)
-        state.step += 1
-        return state, StepMetrics(dist=distance, entropy=m.entropy)
+        with record_function("disc_step"):
+            z = self._local(self._latent(state, len(x_data), z))
+            x = self._local(x_data)
+            grad_fn = self._disc_grads_accum if self.cfg.grad_accum > 1 else self._disc_grads
+            grads, loss, distance, m = grad_fn(state, x, z)
+            return state, self._finish(state, "disc", grads, loss, distance, m)
+
+    def _disc_grads(self, state: TrainState, x, z):
+        params = list(state.disc.parameters())
+        with record_function("features"):
+            x_fake = self.sample(state, z, ema=self.cfg.train_disc_against_ema)
+            f_fake = state.disc(x_fake)
+            f_dat = state.disc(self.ingest(x))
+        with record_function("match"):
+            m = self._matcher(f_fake, f_dat)
+            distance = self._distance(f_fake.detach(), f_dat.detach(), m)
+        with record_function("loss_backward"):
+            loss = med_discriminator_loss(f_fake, f_dat, m)
+            grads = self._sum_grads(torch.autograd.grad(loss, params))
+        return grads, loss.detach(), distance, m
+
+    def _disc_grads_accum(self, state: TrainState, x, z):
+        """``_disc_step_accum`` (``otgan_tpu/engine.py:489-542``): the fake
+        images are kept from the first pass, so the second runs no
+        generator."""
+        params = list(state.disc.parameters())
+        mbs = self._microbatches(len(x))
+        x = _as_tensor(x).to(self.device, non_blocking=True)
+        with record_function("features"), torch.no_grad():
+            x_fake, f_fake, f_dat = [], [], []
+            for sl in mbs:
+                with record_function("microbatch"):
+                    x_fake.append(self.sample(state, map_latent(lambda t: t[sl], z),
+                                              ema=self.cfg.train_disc_against_ema))
+                    f_fake.append(state.disc(x_fake[-1]))
+                    f_dat.append(state.disc(self.ingest(x[sl])))
+            f_fake, f_dat = torch.cat(f_fake), torch.cat(f_dat)
+        with record_function("match"):
+            m = self._matcher(f_fake, f_dat)
+            distance = self._distance(f_fake, f_dat, m)
+        del f_fake, f_dat
+        grads, loss = None, 0.0
+        with record_function("loss_backward"):
+            for sl, xf in zip(mbs, x_fake):
+                with record_function("microbatch"):
+                    mb_loss = med_discriminator_loss(state.disc(xf),
+                                                     state.disc(self.ingest(x[sl])), _rows(m, sl))
+                    g = torch.autograd.grad(mb_loss, params)
+                    grads = _accumulate(grads, g)
+                    loss = loss + mb_loss.detach()
+            grads = self._sum_grads(grads)
+        return grads, loss, distance, m
 
     def is_disc_step(self, step: int) -> bool:
         """1 critic step per ``nr_gen_per_disc`` generator steps
@@ -477,7 +617,20 @@ class Engine:
         if isinstance(z, int):
             z = self.latents(z, state.rng)
         else:
-            z = self._latent(state, len(z), z)
+            z = self._latent(state, 0, z)
         if ema:
             return functional_call(state.gen, state.gen_ema, (z,))
         return state.gen(z)
+
+
+def _rows(m: MatchedFeatures, sl: slice) -> MatchedFeatures:
+    """The matched features of the rows ``sl``."""
+    return MatchedFeatures(*(t[sl] for t in m[:4]), m.entropy)
+
+
+def _accumulate(acc, grads):
+    if acc is None:
+        return list(grads)
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc

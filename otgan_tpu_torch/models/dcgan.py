@@ -12,7 +12,9 @@ an input, so a test can feed the JAX package's draw; :func:`sample_latent`
 draws it from a ``torch.Generator``.
 
 Layer names follow the JAX package's scope counters (``dense_0``,
-``conv2d_0``...), so parameter names map one to one.
+``conv2d_0``...), so parameter names map one to one. The forwards are
+stages tagged with the JAX package's save points (``disc_c2..4``,
+``gen_g1..3``) for ``--remat`` / ``--remat_policy`` (``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from otgan_tpu_torch.nn.layers import Conv2d, Dense, glu, l2_normalize_rows, save_point
+from otgan_tpu_torch.nn.layers import (
+    Conv2d,
+    Dense,
+    glu,
+    l2_normalize_rows,
+    run_stages,
+    save_names,
+)
 
 LATENT_DIM = 100
 
@@ -34,10 +43,18 @@ def sample_latent(batch_size: int, generator: Optional[torch.Generator] = None,
     return u * 2.0 - 1.0
 
 
+def _head(x: torch.Tensor) -> torch.Tensor:
+    """CReLU concat, NHWC flatten, row L2 normalisation."""
+    x = torch.relu(torch.cat([x, -x], dim=-1))
+    return l2_normalize_rows(x.reshape(x.shape[0], -1))
+
+
 class Discriminator(nn.Module):
     def __init__(self, nonlinearity: str = "crelu",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
+        self.remat, self.save = remat, save_names(remat_policy)
         cd = compute_dtype
         self.conv2d_0 = Conv2d(3, 128, (5, 5), pre_activation=None, compute_dtype=cd)
         self.conv2d_1 = Conv2d(128, 256, (5, 5), (2, 2), pre_activation=nonlinearity,
@@ -49,19 +66,24 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images (B, 32, 32, 3) -> unit features (B, 32768)."""
-        x = self.conv2d_0(x)
-        x = save_point(self.conv2d_1(x), "disc_c2")
-        x = save_point(self.conv2d_2(x), "disc_c3")
-        x = save_point(self.conv2d_3(x), "disc_c4")
-        x = torch.relu(torch.cat([x, -x], dim=-1))
-        return l2_normalize_rows(x.reshape(x.shape[0], -1))
+        # disc_c2_half: the JAX package's half-granularity save of disc_c2
+        # (otgan_tpu/models/dcgan.py:63-64); a boundary here keeps disc_c2
+        # whole, and a tag emits no op, so no switch is needed
+        return run_stages([
+            (lambda x: self.conv2d_1(self.conv2d_0(x)), ("disc_c2", "disc_c2_half")),
+            (self.conv2d_2, ("disc_c3",)),
+            (self.conv2d_3, ("disc_c4",)),
+            (_head, ()),
+        ], x, self.remat, self.save)
 
 
 class Generator(nn.Module):
     def __init__(self, nonlinearity: str = "crelu",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
         del nonlinearity  # the DCGAN generator has no pre-activations
+        self.remat, self.save = remat, save_names(remat_policy)
         cd = compute_dtype
         self.dense_0 = Dense(LATENT_DIM, 2 * 4 * 4 * 1024, pre_activation=None,
                              compute_dtype=cd)
@@ -76,17 +98,20 @@ class Generator(nn.Module):
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         """Latents (B, 100) -> NHWC images (B, 32, 32, 3) in [-1, 1]."""
-        x = glu(self.dense_0(u), dim=1)
-        x = x.reshape(u.shape[0], 4, 4, 1024)
-        x = save_point(glu(self.conv2d_0(x)), "gen_g1")
-        x = save_point(glu(self.conv2d_1(x)), "gen_g2")
-        x = save_point(glu(self.conv2d_2(x)), "gen_g3")
-        return torch.tanh(self.conv2d_3(x))
+        return run_stages([
+            (lambda u: glu(self.dense_0(u), dim=1).reshape(u.shape[0], 4, 4, 1024), ()),
+            (lambda x: glu(self.conv2d_0(x)), ("gen_g1",)),
+            (lambda x: glu(self.conv2d_1(x)), ("gen_g2",)),
+            (lambda x: glu(self.conv2d_2(x)), ("gen_g3",)),
+            (lambda x: torch.tanh(self.conv2d_3(x)), ()),
+        ], u, self.remat, self.save)
 
 
-def make_discriminator(nonlinearity: str = "crelu", compute_dtype=torch.float32):
-    return Discriminator(nonlinearity, compute_dtype)
+def make_discriminator(nonlinearity: str = "crelu", compute_dtype=torch.float32,
+                       remat: bool = False, remat_policy: str = ""):
+    return Discriminator(nonlinearity, compute_dtype, remat, remat_policy)
 
 
-def make_generator(nonlinearity: str = "crelu", compute_dtype=torch.float32):
-    return Generator(nonlinearity, compute_dtype)
+def make_generator(nonlinearity: str = "crelu", compute_dtype=torch.float32,
+                   remat: bool = False, remat_policy: str = ""):
+    return Generator(nonlinearity, compute_dtype, remat, remat_policy)

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from otgan_tpu_torch.nn.layers import Dense
+from otgan_tpu_torch.nn.layers import Dense, run_stages
 
 LATENT_DIM = 256
 FEATURE_DIM = 16
@@ -43,37 +43,52 @@ def _add_dense_layers(module: nn.Module, widths, nonlinearity: str,
             compute_dtype=compute_dtype, weight_norm=False))
 
 
-class Discriminator(nn.Module):
-    def __init__(self, nonlinearity: str = "relu",
-                 compute_dtype: torch.dtype = torch.float32):
+class _MLP(nn.Module):
+    """Plain dense layers; no save points, so ``--remat`` recomputes the
+    whole MLP (``otgan_tpu/models/toy_mlp.py``: the policy is accepted for
+    uniformity)."""
+
+    def __init__(self, widths, nonlinearity: str, compute_dtype: torch.dtype,
+                 remat: bool, remat_policy: str, scale: float = 1.0):
         super().__init__()
-        _add_dense_layers(self, (2, 32, 32, 32, FEATURE_DIM), nonlinearity, compute_dtype)
+        del remat_policy  # no tagged points
+        _add_dense_layers(self, widths, nonlinearity, compute_dtype)
+        self.remat, self.scale = remat, scale
+
+    def _layers(self, h: torch.Tensor) -> torch.Tensor:
+        h = h / self.scale if self.scale != 1.0 else h
+        for layer in self.children():
+            h = layer(h)
+        return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Points (B, 2) -> features (B, 16)."""
-        h = x / 4.0  # input scaling of the notebook's critic
-        for layer in self.children():
-            h = layer(h)
-        return h
+        return run_stages([(self._layers, ())], x, self.remat)
 
 
-class Generator(nn.Module):
-    def __init__(self, nonlinearity: str = "relu",
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        _add_dense_layers(self, (LATENT_DIM, 128, 128, 128, 2), nonlinearity, compute_dtype)
+class Discriminator(_MLP):
+    """Points (B, 2) -> features (B, 16); the notebook's critic scales its
+    input by 1/4."""
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """Latents (B, 256) -> points (B, 2)."""
-        h = z
-        for layer in self.children():
-            h = layer(h)
-        return h
+    def __init__(self, nonlinearity: str = "relu", compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_policy: str = ""):
+        super().__init__((2, 32, 32, 32, FEATURE_DIM), nonlinearity, compute_dtype, remat,
+                         remat_policy, scale=4.0)
 
 
-def make_discriminator(nonlinearity: str = "relu", compute_dtype=torch.float32):
-    return Discriminator(nonlinearity, compute_dtype)
+class Generator(_MLP):
+    """Latents (B, 256) -> points (B, 2)."""
+
+    def __init__(self, nonlinearity: str = "relu", compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_policy: str = ""):
+        super().__init__((LATENT_DIM, 128, 128, 128, 2), nonlinearity, compute_dtype, remat,
+                         remat_policy)
 
 
-def make_generator(nonlinearity: str = "relu", compute_dtype=torch.float32):
-    return Generator(nonlinearity, compute_dtype)
+def make_discriminator(nonlinearity: str = "relu", compute_dtype=torch.float32,
+                       remat: bool = False, remat_policy: str = ""):
+    return Discriminator(nonlinearity, compute_dtype, remat, remat_policy)
+
+
+def make_generator(nonlinearity: str = "relu", compute_dtype=torch.float32,
+                   remat: bool = False, remat_policy: str = ""):
+    return Generator(nonlinearity, compute_dtype, remat, remat_policy)

@@ -14,39 +14,61 @@
   layer folds that scale into V instead (``utils/nn.py:150-151``).
 * The pre-activation (none/relu/elu/crelu/celu) is applied to the input
   inside the layer; the 'c' variants concatenate ``[x, -x]`` on channels and
-  double the fan-in.
+  double the fan-in. A conv takes a list of tensors (the DenseNet's dense
+  connectivity): the 'c' variants interleave ``[x0, -x0, x1, -x1, ...]``
+  per element before one concatenation, so V's input channels are in the
+  JAX package's order.
 * Activations are NHWC at every public function, as in the JAX package.
   Inside, the NHWC tensor is viewed as a channels-last NCHW tensor (no
   copy) for ``conv2d``.
 * ``compute_dtype`` casts the input and the weight before the matmul or
   conv and upcasts the result to float32; weight-norm math stays float32.
+  Where the cast commutes with the pre-activation (none, relu, crelu) a
+  conv casts each list element before the concatenation: the same conv
+  input, bitwise, built at the compute dtype's width.
+* Save points and remat (``otgan_tpu/nn/layers.py:353-429``): a model's
+  forward is a list of stages, each tagged with the save-point names of the
+  carry it returns; :func:`run_stages` runs them plainly or, with remat,
+  as ``torch.utils.checkpoint`` segments that end at the save points a
+  policy lists.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence
+from typing import Callable, Collection, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 PRE_ACTIVATIONS = (None, "relu", "elu", "crelu", "celu")
+# pre-activations that commute with rounding to a narrower float: each is
+# monotone, odd or clamping at 0, and keeps 0
+CAST_FIRST = (None, "relu", "crelu")
+
+TensorOrList = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def apply_pre_activation(x: torch.Tensor, pre_activation: Optional[str]) -> torch.Tensor:
+def apply_pre_activation(x: TensorOrList, pre_activation: Optional[str],
+                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Reference ``apply_pre_activation`` (``utils/nn.py:190-206``) on the
-    last (channel) axis."""
-    if pre_activation is None:
-        return x
-    if pre_activation == "crelu":
-        return F.relu(torch.cat([x, -x], dim=-1))
-    if pre_activation == "celu":
-        return F.elu(torch.cat([x, -x], dim=-1))
-    if pre_activation == "relu":
-        return F.relu(x)
-    if pre_activation == "elu":
-        return F.elu(x)
-    raise ValueError(f"unsupported pre-activation: {pre_activation!r}")
+    last (channel) axis of a tensor or a list of tensors, concatenated; the
+    'c' variants interleave ``[xi, -xi]`` per element. ``dtype``: cast each
+    element to it first where that gives the same result (``CAST_FIRST``)."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if pre_activation not in PRE_ACTIVATIONS:
+        raise ValueError(f"unsupported pre-activation: {pre_activation!r}")
+    if dtype is not None and pre_activation in CAST_FIRST:
+        xs = [xi.to(dtype) for xi in xs]
+    if pre_activation in ("crelu", "celu"):
+        xs = [s for xi in xs for s in (xi, -xi)]
+    cat = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+    if pre_activation in ("relu", "crelu"):
+        return F.relu(cat)
+    if pre_activation in ("elu", "celu"):
+        return F.elu(cat)
+    return cat
 
 
 def fan_in_factor(pre_activation: Optional[str]) -> int:
@@ -71,17 +93,70 @@ def nn_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return x.reshape(n, h * factor, w * factor, c)
 
 
-def save_point(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Named rematerialisation boundary; an identity until remat is ported."""
-    return x
+Stage = Tuple[Callable, Tuple[str, ...]]
 
 
-def same_padding(size: int, kernel: int, stride: int):
+def save_names(remat_policy: str) -> frozenset:
+    """The save-point names a ``--remat_policy`` string lists."""
+    return frozenset(n.strip() for n in remat_policy.split(",") if n.strip())
+
+
+def segments(stages: Sequence[Stage], save: Collection[str]) -> List[List[Stage]]:
+    """``stages`` cut after each stage whose tags meet ``save``. Unknown
+    names are inert; with none listed the whole model is one segment."""
+    out, cur = [], []
+    for stage in stages:
+        cur.append(stage)
+        if any(tag in save for tag in stage[1]):
+            out.append(cur)
+            cur = []
+    return out + [cur] if cur else out
+
+
+def _run(segment: Sequence[Stage], carry):
+    for fn, _ in segment:
+        carry = fn(carry)
+    return carry
+
+
+def run_stages(stages: Sequence[Stage], carry, remat: bool = False,
+               save: Collection[str] = frozenset()):
+    """Run a model's forward, ``stages``: ``(fn, tags)`` pairs, ``fn`` maps
+    the carry (a tensor or a list of tensors) to the next, and ``tags`` name
+    the save points of the carry it returns (``save_point`` in the JAX
+    package; ``save_point_half`` becomes a tag of the whole carry, since a
+    segment boundary keeps whole tensors).
+
+    Without ``remat``, or with no gradient to record (the data-dependent
+    init, sampling), the plain sequence. With ``remat``, each of
+    :func:`segments` runs under ``torch.utils.checkpoint`` (non-reentrant):
+    the carries at the listed save points are kept, the rest is recomputed
+    in the backward pass, one segment at a time. Values and gradients are
+    the plain run's. The stages draw no randomness (latents are inputs), so
+    no RNG state is kept for the recompute."""
+    if not remat or not torch.is_grad_enabled():
+        return _run(stages, carry)
+    for seg in segments(stages, save):
+        is_list = isinstance(carry, (list, tuple))
+
+        def fn(*ts, seg=seg, is_list=is_list):
+            out = _run(seg, list(ts) if is_list else ts[0])
+            return tuple(out) if isinstance(out, list) else out
+
+        out = checkpoint(fn, *(carry if is_list else [carry]), use_reentrant=False,
+                         preserve_rng_state=False)
+        carry = list(out) if isinstance(out, tuple) else out
+    return carry
+
+
+def same_padding(size: int, kernel: int, stride: int, dilation: int = 1):
     """XLA's SAME padding ``(low, high)`` for one spatial dim: the output is
     ``ceil(size / stride)`` and an odd total pads one more at the high end
-    (5x5 stride 2 on 32 -> 16 pads (1, 2))."""
+    (5x5 stride 2 on 32 -> 16 pads (1, 2)); a dilated kernel spans
+    ``(kernel - 1) * dilation + 1``."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    span = (kernel - 1) * dilation + 1
+    total = max((out - 1) * stride + span - size, 0)
     return total // 2, total - total // 2
 
 
@@ -127,7 +202,7 @@ class _WeightNormLayer(nn.Module):
     def _apply_weight(self, xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: TensorOrList) -> torch.Tensor:
         xin = self._input(x)
         if self.init_pending:
             return self._data_dependent_init(xin)
@@ -178,32 +253,38 @@ class Dense(_WeightNormLayer):
 
 class Conv2d(_WeightNormLayer):
     """Weight-normalised conv layer (reference ``conv2d``,
-    ``utils/nn.py:327-338``) on NHWC inputs; V is OIHW. ``upsample``
-    NN-upsamples 2x before the pre-activation. Padding is XLA's SAME."""
+    ``utils/nn.py:327-338``) on NHWC inputs; V is OIHW. The input is a
+    tensor or a list of tensors whose channels sum to ``in_channels``.
+    ``upsample`` concatenates a list, NN-upsamples it 2x, then applies the
+    pre-activation (``otgan_tpu/nn/layers.py:287-296``). ``dilation`` is the
+    reference's ``atrous_conv2d``. Padding is XLA's SAME."""
 
     def __init__(self, in_channels: int, num_filters: int,
                  filter_size: Sequence[int] = (3, 3), stride: Sequence[int] = (1, 1),
                  upsample: bool = False, pre_activation: Optional[str] = "celu",
                  init_scale: float = 1.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, dilation: int = 1):
         fan_in = in_channels * fan_in_factor(pre_activation)
         kh, kw = filter_size
         super().__init__((num_filters, fan_in, kh, kw), init_scale,
                          pre_activation, compute_dtype)
         self.stride = tuple(stride)
         self.upsample = upsample
+        self.dilation = dilation
 
     def _input(self, x):
-        if self.upsample:
-            x = nn_upsample(x)
-        return apply_pre_activation(x, self.pre_activation)
+        cd = self.compute_dtype
+        if self.upsample:  # concatenate (cast first where that commutes), then upsample
+            x = nn_upsample(apply_pre_activation(
+                x, None, cd if self.pre_activation in CAST_FIRST else None))
+        return apply_pre_activation(x, self.pre_activation, cd)
 
     def _apply_weight(self, xin, w):
         cd = self.compute_dtype
         _, h, wd, _ = xin.shape
         kh, kw = w.shape[2:]
-        ph = same_padding(h, kh, self.stride[0])
-        pw = same_padding(wd, kw, self.stride[1])
+        ph = same_padding(h, kh, self.stride[0], self.dilation)
+        pw = same_padding(wd, kw, self.stride[1], self.dilation)
         x = xin.to(cd)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])
@@ -212,7 +293,7 @@ class Conv2d(_WeightNormLayer):
             padding = (0, 0)
         # NHWC -> channels-last NCHW view, and back: no copies
         out = F.conv2d(x.permute(0, 3, 1, 2), w.to(cd), stride=self.stride,
-                       padding=padding)
+                       padding=padding, dilation=self.dilation)
         return out.permute(0, 2, 3, 1).float()
 
 

@@ -44,8 +44,10 @@ def generate(cfg: TrainConfig, checkpoint: str, num_samples: int, ema: bool = Fa
              seed: int = 0, device=None) -> np.ndarray:
     """``num_samples`` samples of the checkpoint's generator (or its EMA)."""
     # the state is overwritten by the checkpoint: a one-process template
-    # from a small batch, without the data-dependent init, is enough
-    engine = Engine(dataclasses.replace(cfg, data_dependent_init=False, num_devices=0), device)
+    # from a small batch, without the data-dependent init, is enough; the
+    # run's microbatching is a training option, not a sampling one
+    engine = Engine(dataclasses.replace(cfg, data_dependent_init=False, num_devices=0,
+                                        grad_accum=1), device)
     if cfg.model == "toy_mlp":
         x_init = sample_8gaussians(np.random.default_rng(0), 2)
     else:

@@ -15,7 +15,11 @@ step (``launches``, this rank's).
 After each epoch it writes 100 samples of the generator and of its EMA
 (``sample<e>.png`` and ``ema_sample<e>.png`` grids for images,
 ``sample<e>.npy`` and ``ema_sample<e>.npy`` for toy points), drawn from
-latents seeded by the epoch. Every ``--save_every_epochs`` epochs (not the
+latents seeded by the epoch. ``--profile_dir D`` traces the epochs with
+``torch.profiler`` into ``D/trace_rank<r>.json`` (``utils/tracing.py``), also
+when the run raises; ``--debug_nans`` makes every step raise
+``FloatingPointError`` at its first non-finite loss, gradient, distance or
+entropy (``engine.py``). Every ``--save_every_epochs`` epochs (not the
 first epoch of a run) it writes the full train state,
 ``otgan_state-<epoch>.npz`` (``utils/checkpoint.py``; retention, slot dtype
 and background writes from the config), and beside it ``distances.npz``,
@@ -23,7 +27,9 @@ the per-epoch mean distances of the run (an epoch without a step of one
 kind logs that kind's last mean with ``dist_*_carried``). ``--load_params``
 resumes from ``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
 after it; the data generator starts afresh from ``--seed``, as in the JAX
-trainer. Inception/FID eval and host prefetch come in later slices.
+trainer. Inception/FID eval and host prefetch come in later slices; the JAX
+trainer's TPU memory warnings (``otgan_tpu/train.py:240-280``) are not
+ported, their limits being a TPU's.
 
 On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
 --num_devices K ...``, one process per GPU (NCCL; gloo with ``--device
@@ -63,6 +69,7 @@ from otgan_tpu_torch.utils.checkpoint import (
 )
 from otgan_tpu_torch.utils.metrics import MetricLogger
 from otgan_tpu_torch.utils.plotting import img_tile, save_tile_img
+from otgan_tpu_torch.utils.tracing import profiled, trace_path
 
 SAMPLES_PER_EPOCH = 100
 
@@ -142,9 +149,11 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         x_init = loader.init_batch(cfg.init_batch_size or None)
     state, num_features = engine.init_state(cfg.seed, x_init)
     if rank0:
+        accum = (f"; grad_accum: {cfg.grad_accum} microbatches of "
+                 f"{cfg.batch_size // cfg.grad_accum}" if cfg.grad_accum > 1 else "")
         print(
             f"device: {engine.device} ({engine.world} rank(s)); global batch: "
-            f"{cfg.batch_size}; matcher: {engine.matcher_desc}\n"
+            f"{cfg.batch_size}; matcher: {engine.matcher_desc}{accum}\n"
             f"model has a hidden representation with {num_features} features",
             flush=True,
         )
@@ -160,7 +169,8 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             print("no checkpoint found; training from scratch", flush=True)
     steps: List[dict] = []
     stride = cfg.log_every_steps
-    with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger:
+    with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger, \
+            profiled(cfg.profile_dir, engine.device, engine.rank):
         logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread)
         launches0 = kernel_launches()
         mean_dist_gen: List[Optional[float]] = []
@@ -214,6 +224,8 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                 logger.save_distances(mean_dist_gen, mean_dist_disc)
                 print(f"saved {path}; elapsed hours {(time.time() - start_time) / 3600:.3f}; "
                       f"total updates {state.step}", flush=True)
+    if cfg.profile_dir and rank0:
+        print(f"wrote {trace_path(cfg.profile_dir, engine.rank)}", flush=True)
     # every checkpoint reported as saved is on disk before train() returns
     wait_for_pending_saves()
     return TrainResult(state, steps)

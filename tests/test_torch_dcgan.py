@@ -15,7 +15,7 @@ import torch
 
 from otgan_tpu.models import dcgan as jax_dcgan
 from otgan_tpu_torch.convert import load_params
-from otgan_tpu_torch.models import dcgan, get_model
+from otgan_tpu_torch.models import dcgan, densenet, get_model
 from otgan_tpu_torch.nn.layers import data_init
 
 
@@ -77,7 +77,6 @@ def test_latents_and_registry():
     assert z.shape == (64, 100) and float(z.min()) >= -1 and float(z.max()) <= 1
     assert get_model("dcgan") is dcgan
     assert get_model("toy_mlp").LATENT_DIM == 256
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("densenet")
+    assert get_model("densenet") is densenet
     with pytest.raises(ValueError):
         get_model("resnet")

@@ -174,18 +174,28 @@ def test_config_surface_matches_jax():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(model="densenet"), dict(profile_dir="/tmp/trace"), dict(remat=True),
-     dict(grad_accum=2), dict(debug_nans=True), dict(multihost=True),
-     dict(checkpoint_backend="orbax"), dict(eval_fid=True), dict(matching_precision="high")],
+    [dict(multihost=True), dict(checkpoint_backend="orbax"), dict(eval_fid=True),
+     dict(matching_precision="high")],
 )
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         port_config.check_supported(port_config.TrainConfig(**kw))
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [dict(model="densenet"), dict(profile_dir="/tmp/trace"), dict(remat=True),
+     dict(grad_accum=2), dict(debug_nans=True)],
+)
+def test_ported_options_pass_check_supported(kw):
+    port_config.check_supported(port_config.TrainConfig(**kw))
+    assert port_config.TrainConfig(**kw).model_opts() == JaxConfig(**kw).model_opts()
+
+
 def test_port_never_imports_jax():
     files = sorted((REPO / "otgan_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "measure_local_step.py", REPO / "measure_resident.py"]
+        REPO / "chip_smoke.py", REPO / "measure_local_step.py", REPO / "measure_resident.py",
+        REPO / "measure_densenet.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

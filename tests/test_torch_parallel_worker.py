@@ -187,3 +187,26 @@ def engine_matchers(rank, size, fa, fb, cfgs):
         m = eng._matcher(_block(fa, rank, size), _block(fb, rank, size))
         out.append((eng.matcher_desc, _np(m)))
     return out
+
+
+def engine_grads(rank, size, cfg, x_init, x, z, kind):
+    """The gradients one step of the port's engine hands its optimizer on
+    ``size`` ranks (after their all-reduce), by parameter name, with the
+    step's dist and entropy; rank 0 returns the gradients."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+
+    eng = Engine(TrainConfig(**cfg), device="cpu")
+    state, _ = eng.init_state(0, x_init)
+    captured = {}
+    update = eng.opt_update
+
+    def spy(params, grads, opt, lr, **kw):
+        captured.update({k: g.numpy().copy() for k, g in grads.items()})
+        return update(params, grads, opt, lr, **kw)
+
+    eng.opt_update = spy
+    step = eng.disc_step if kind == "disc" else eng.gen_step
+    state, met = step(state, x, z)
+    return dict(dist=float(met.dist), entropy=float(met.entropy),
+                grads=captured if rank == 0 else None)
