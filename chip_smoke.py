@@ -40,7 +40,9 @@ Run from the root of a checkout, it
    microbatch's gradients of the generator and critic under ``--remat``
    and under ``--remat_policy gen_u1,gen_u2,disc_d2,disc_d3`` against the
    plain models' (float32, cuDNN deterministic): max relative difference
-   <= 1e-6;
+   <= 1e-6; and so for one DCGAN generator step and one critic step through
+   the engine at batch 256 without microbatches, under ``--remat`` and
+   under ``--remat_policy gen_g1,disc_c4,gen_g2,disc_c3,gen_g3``;
 5. holds the row-sharded matcher's local-step kernel, under both tiers
    (fused and stream, one kernel that both launch), against its plain version,
    at the row blocks one rank holds in a multi-GPU run: (6, 313, 2500)
@@ -143,6 +145,7 @@ TOY_EPOCH_BATCHES = 8  # batches of the toy run's short epochs
 # the generator step; 2500 runs out of memory; PERF.md 5)
 DENSENET_ACCUM = 4
 REMAT_POLICY = "gen_u1,gen_u2,disc_d2,disc_d3"
+DCGAN_REMAT_POLICY = "gen_g1,disc_c4,gen_g2,disc_c3,gen_g3"
 
 
 def card_line() -> str:
@@ -1017,11 +1020,56 @@ def densenet_remat_check(card: str, mb: int = 64) -> dict:
     return rel
 
 
+def dcgan_remat_step_check(card: str, batch: int = 256) -> dict:
+    """One DCGAN generator step and one critic step through the engine, no
+    microbatches (float32, cuDNN deterministic), under ``--remat`` and under
+    ``DCGAN_REMAT_POLICY``, against the plain steps' gradients: max relative
+    difference <= 1e-6."""
+    import torch
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = torch.Generator().manual_seed(9)
+        x = torch.randint(0, 256, (batch, 32, 32, 3), generator=gen, dtype=torch.uint8)
+        z = torch.rand((batch, 100), generator=gen) * 2.0 - 1.0
+        variants = {"plain": {}, "remat": dict(remat=True),
+                    "policy": dict(remat=True, remat_policy=DCGAN_REMAT_POLICY)}
+        grads = {}
+        for k, kw in variants.items():
+            eng = Engine(TrainConfig(model="dcgan", batch_size=batch, num_devices=1,
+                                     compute_dtype="float32", **kw))
+            state, _ = eng.init_state(0, x)
+            captured, update = {}, eng.opt_update
+
+            def spy(params, g, opt, lr, captured=captured, update=update, **okw):
+                captured.setdefault("grads", []).extend(t.detach().clone() for t in g.values())
+                return update(params, g, opt, lr, **okw)
+
+            eng.opt_update = spy
+            eng.gen_step(state, x, z)
+            eng.disc_step(state, x, z)
+            grads[k] = captured["grads"]
+        rel = {k: max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(grads[k], grads["plain"])) for k in ("remat", "policy")}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = flags
+    print(f"DCGAN steps through the engine at batch {batch}, no microbatches, float32, on "
+          f"{card}: max relative gradient difference to the plain steps: --remat "
+          f"{rel['remat']:.3e}, --remat_policy {DCGAN_REMAT_POLICY} {rel['policy']:.3e}",
+          flush=True)
+    if not all(v <= 1e-6 for v in rel.values()):
+        raise AssertionError(f"remat changes the DCGAN steps' gradients: {rel}")
+    return rel
+
+
 def densenet_phase(card: str) -> dict:
     """One 5:1 cycle of ``--preset train_py --model densenet --grad_accum
     DENSENET_ACCUM`` at batch 5000 (the grid tier at 6 x 2500^2, features d
     7296), counters zeroed just before and read just after; then
-    :func:`densenet_remat_check`."""
+    :func:`densenet_remat_check` and :func:`dcgan_remat_step_check`."""
     import torch
     from otgan_tpu_torch import train as train_mod
     from otgan_tpu_torch.models import densenet
@@ -1061,7 +1109,8 @@ def densenet_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, steps_ms=[r["step_ms"] for r in steps], cycle_ms=cycle_ms,
                 img_per_s=BATCH * len(steps) / cycle_ms * 1e3, wall_s=wall, peak_gb=peak_gb,
-                grad_accum=DENSENET_ACCUM, remat_max_rel_diff=densenet_remat_check(card))
+                grad_accum=DENSENET_ACCUM, remat_max_rel_diff=densenet_remat_check(card),
+                dcgan_remat_max_rel_diff=dcgan_remat_step_check(card))
 
 
 def main() -> int:

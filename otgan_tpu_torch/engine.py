@@ -171,9 +171,6 @@ class Engine:
             )
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.family = get_model(cfg.model)
-        self._latent_opts = (
-            {"filters_per_layer": cfg.filters_per_layer} if cfg.model == "densenet" else {}
-        )
         self.cost_fn = scaled_sqeuclidean_cost if cfg.model == "toy_mlp" else cosine_cost
         self.opt_init, opt_update = make_optimizer(cfg.optimizer)
         if cfg.optimizer == "nesterov":
@@ -381,7 +378,7 @@ class Engine:
     def latents(self, batch: int, generator: Optional[torch.Generator] = None):
         """``batch`` of the family's latents on the device, from ``generator``
         (a tensor; the DenseNet's: a tuple of four)."""
-        return self.family.sample_latent(batch, generator, self.device, **self._latent_opts)
+        return self.family.sample_latent(batch, generator, self.device, **self.cfg.model_opts())
 
     # -- init (the data-dependent init really runs) --
     def init_state(self, seed: int, x_init) -> Tuple[TrainState, int]:
@@ -401,7 +398,7 @@ class Engine:
         x = self.ingest(x_init)
         if self.cfg.data_dependent_init and self.cfg.model != "toy_mlp":
             f = data_init(disc, x)
-            z = self.family.sample_latent(x.shape[0], cpu_rng, **self._latent_opts)
+            z = self.family.sample_latent(x.shape[0], cpu_rng, **self.cfg.model_opts())
             data_init(gen, map_latent(lambda t: t.to(self.device), z))
         else:
             with torch.no_grad():
@@ -492,17 +489,20 @@ class Engine:
 
     def _gen_grads(self, state: TrainState, x, z):
         params = list(state.gen.parameters())
-        with record_function("features"):
-            with torch.no_grad():
-                f_dat = state.disc(self.ingest(x))
-            with _frozen(state.disc):
+        # the critic stays frozen through the backward pass too: under
+        # --remat its segments recompute there and must record what the
+        # frozen forward recorded
+        with _frozen(state.disc):
+            with record_function("features"):
+                with torch.no_grad():
+                    f_dat = state.disc(self.ingest(x))
                 f_gen = state.disc(state.gen(z))
-        with record_function("match"):
-            m = self._matcher(f_gen, f_dat)
-            distance = self._distance(f_gen.detach(), f_dat, m)
-        with record_function("loss_backward"):
-            loss = med_generator_loss(f_gen, m)
-            grads = self._sum_grads(torch.autograd.grad(loss, params))
+            with record_function("match"):
+                m = self._matcher(f_gen, f_dat)
+                distance = self._distance(f_gen.detach(), f_dat, m)
+            with record_function("loss_backward"):
+                loss = med_generator_loss(f_gen, m)
+                grads = self._sum_grads(torch.autograd.grad(loss, params))
         return grads, loss.detach(), distance, m
 
     def _gen_grads_accum(self, state: TrainState, x, z):

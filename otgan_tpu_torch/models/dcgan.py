@@ -37,8 +37,9 @@ LATENT_DIM = 100
 
 
 def sample_latent(batch_size: int, generator: Optional[torch.Generator] = None,
-                  device="cpu") -> torch.Tensor:
-    """``U(-1, 1)^100`` latents (reference ``models/dcgan.py:30``)."""
+                  device="cpu", **model_opts) -> torch.Tensor:
+    """``U(-1, 1)^100`` latents (reference ``models/dcgan.py:30``); the
+    family's constructor options change nothing here."""
     u = torch.rand((batch_size, LATENT_DIM), generator=generator, device=device)
     return u * 2.0 - 1.0
 
@@ -66,11 +67,12 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images (B, 32, 32, 3) -> unit features (B, 32768)."""
-        # disc_c2_half: the JAX package's half-granularity save of disc_c2
-        # (otgan_tpu/models/dcgan.py:63-64); a boundary here keeps disc_c2
-        # whole, and a tag emits no op, so no switch is needed
+        # disc_c2_half, the JAX package's save of the first half of disc_c2
+        # (otgan_tpu/models/dcgan.py:63-64), marks no boundary: a segment
+        # boundary keeps whole tensors, so a policy naming only disc_c2_half
+        # recomputes disc_c2 rather than keep twice the bytes it asked for
         return run_stages([
-            (lambda x: self.conv2d_1(self.conv2d_0(x)), ("disc_c2", "disc_c2_half")),
+            (lambda x: self.conv2d_1(self.conv2d_0(x)), ("disc_c2",)),
             (self.conv2d_2, ("disc_c3",)),
             (self.conv2d_3, ("disc_c4",)),
             (_head, ()),

@@ -41,9 +41,11 @@ LATENT_DIM = 100
 
 
 def sample_latent(batch_size: int, generator: Optional[torch.Generator] = None,
-                  device="cpu", filters_per_layer: int = 16) -> Tuple[torch.Tensor, ...]:
+                  device="cpu", filters_per_layer: int = 16,
+                  **model_opts) -> Tuple[torch.Tensor, ...]:
     """The generator's four ``U(-1, 1)`` noises, in the JAX package's order
-    (``otgan_tpu/models/densenet.py:99-104``)."""
+    (``otgan_tpu/models/densenet.py:99-104``); of the family's constructor
+    options only ``filters_per_layer`` shapes them."""
     f = filters_per_layer
     shapes = ((batch_size, LATENT_DIM), (batch_size, 8, 8, f), (batch_size, 16, 16, f),
               (batch_size, 32, 32, f))

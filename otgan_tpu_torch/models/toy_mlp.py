@@ -28,8 +28,9 @@ FEATURE_DIM = 16
 
 
 def sample_latent(batch_size: int, generator: Optional[torch.Generator] = None,
-                  device="cpu") -> torch.Tensor:
-    """``N(0, 1)^256`` latents (``otgan_tpu/models/toy_mlp.py:33``)."""
+                  device="cpu", **model_opts) -> torch.Tensor:
+    """``N(0, 1)^256`` latents (``otgan_tpu/models/toy_mlp.py:33``); the
+    family's constructor options change nothing here."""
     return torch.randn((batch_size, LATENT_DIM), generator=generator, device=device)
 
 

@@ -124,8 +124,8 @@ def run_stages(stages: Sequence[Stage], carry, remat: bool = False,
     """Run a model's forward, ``stages``: ``(fn, tags)`` pairs, ``fn`` maps
     the carry (a tensor or a list of tensors) to the next, and ``tags`` name
     the save points of the carry it returns (``save_point`` in the JAX
-    package; ``save_point_half`` becomes a tag of the whole carry, since a
-    segment boundary keeps whole tensors).
+    package; a segment boundary keeps whole tensors, so ``save_point_half``
+    has no counterpart).
 
     Without ``remat``, or with no gradient to record (the data-dependent
     init, sampling), the plain sequence. With ``remat``, each of

@@ -7,7 +7,8 @@ inputs), also against the EMA generator; ``dist`` and ``entropy`` are the
 full-batch step's; an indivisible batch raises; a world of 2 gloo ranks
 microbatching its local rows equals one rank; and a tiny DenseNet trained
 through the CLI with ``--grad_accum 2 --remat`` checkpoints, resumes at the
-next epoch and samples.
+next epoch and samples. One DCGAN step under ``--remat`` without
+microbatches equals the plain step.
 
 Tolerance: port against port, ``_assert_trees_close`` of
 ``tests/test_grad_accum.py`` (rtol and atol 1e-4: the accumulated sum
@@ -160,10 +161,11 @@ def test_accum_indivisible_batch_raises():
 @pytest.mark.parametrize("kind", ["gen", "disc"])
 def test_densenet_accum_grads_match_full_batch(kind):
     """The image-shaped path: a tiny DenseNet (uint8 batch ingested per
-    microbatch, the four noises sliced by rows), under remat too."""
+    microbatch, the four noises sliced by rows), under remat too, with and
+    without microbatches."""
     x = np.random.default_rng(1).integers(0, 256, (8, 32, 32, 3)).astype(np.uint8)
     grads = {}
-    for accum, remat in ((1, False), (4, False), (2, True)):
+    for accum, remat in ((1, False), (4, False), (2, True), (1, True)):
         cfg = TrainConfig(model="densenet", layers_per_block=1, filters_per_layer=4,
                           batch_size=8, grad_accum=accum, remat=remat,
                           remat_policy="gen_u1,disc_d2", nr_sinkhorn_iter=10,
@@ -179,6 +181,32 @@ def test_densenet_accum_grads_match_full_batch(kind):
     for got, d in grads.values():
         _assert_trees_close(got, full)
         np.testing.assert_allclose(d, dist, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["gen", "disc"])
+def test_dcgan_remat_step_matches_plain(kind):
+    """One DCGAN step under ``--remat`` without microbatches, alone and with
+    the JAX package's usual policy, equals the plain step: the critic stays
+    frozen through the generator step's backward pass, where its segments
+    recompute."""
+    x = np.random.default_rng(4).integers(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+    z = np.random.default_rng(5).uniform(-1, 1, (4, 100)).astype(np.float32)
+    grads = {}
+    for remat, policy in ((False, ""), (True, ""), (True, "gen_g1,disc_c4,gen_g2,disc_c3,gen_g3")):
+        cfg = TrainConfig(model="dcgan", batch_size=4, remat=remat, remat_policy=policy,
+                          nr_sinkhorn_iter=10, sinkhorn_lambda=50.0, compute_dtype="float32")
+        eng = Engine(cfg, device="cpu")
+        state, _ = eng.init_state(0, x)
+        captured = _spy(eng)
+        step = eng.disc_step if kind == "disc" else eng.gen_step
+        _, met = step(state, x, z)
+        grads[policy if remat else None] = (captured["grads"], float(met.dist))
+    plain, dist = grads.pop(None)
+    for got, d in grads.values():
+        assert d == dist
+        for name, g in plain.items():
+            np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=0,
+                                       atol=1e-6 * float(g.abs().max()), err_msg=name)
 
 
 @pytest.mark.parametrize("kind", ["gen", "disc"])

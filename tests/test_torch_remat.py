@@ -4,8 +4,9 @@
 that end at the save points ``--remat_policy`` lists (one segment without
 a policy); a scheduling decision, so forward values and gradients must
 equal the plain module's (atol 1e-6, float32, CPU) for the toy, the DCGAN
-and a small DenseNet. Unknown names are inert, and ``disc_c2_half`` is a
-tag that changes no value. The port's remat gradients also hold against
+and a small DenseNet. Unknown names are inert, and so is ``disc_c2_half``
+(a segment boundary keeps whole tensors, so the port cannot keep the half
+of disc_c2 that JAX's ``save_point_half`` keeps, and keeps none of it). The port's remat gradients also hold against
 the JAX package's under the same policy (2e-5 of the largest value, as
 ``tests/test_torch_dcgan.py``).
 """
@@ -19,6 +20,7 @@ import torch
 from otgan_tpu.models import densenet as jax_densenet
 from otgan_tpu_torch.convert import load_params, unflatten_params
 from otgan_tpu_torch.models import dcgan, densenet, toy_mlp
+from otgan_tpu_torch.nn import layers
 from otgan_tpu_torch.nn.layers import reset_parameters, save_names, segments
 
 
@@ -80,9 +82,8 @@ def test_densenet_remat_matches_plain():
         lambda r, p: densenet.make_generator(2, 4, remat=r, remat_policy=p), list(z), policies)
 
 
-def test_segments_end_at_the_listed_save_points():
-    stages = [(None, ("disc_c2", "disc_c2_half")), (None, ("disc_c3",)), (None, ("disc_c4",)),
-              (None, ())]
+def test_segments_end_at_the_listed_save_points(monkeypatch):
+    stages = [(None, ("disc_c2",)), (None, ("disc_c3",)), (None, ("disc_c4",)), (None, ())]
 
     def cut(policy):
         return [len(seg) for seg in segments(stages, save_names(policy))]
@@ -90,8 +91,17 @@ def test_segments_end_at_the_listed_save_points():
     assert cut("") == [4]
     assert cut("unknown_name_is_inert") == [4]
     assert cut("disc_c3") == [2, 2]
-    assert cut(" disc_c2_half , disc_c4") == [1, 2, 1]
-    assert cut("disc_c2,disc_c2_half") == cut("disc_c2") == [1, 3]
+    assert cut(" disc_c2 , disc_c4") == [1, 2, 1]
+    # the DCGAN critic runs one checkpoint a segment; disc_c2_half cuts none
+    calls = []
+    real = layers.checkpoint
+    monkeypatch.setattr(layers, "checkpoint", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    x = torch.zeros((1, 32, 32, 3), requires_grad=True)
+    for policy, n in (("", 1), ("disc_c2_half", 1), ("disc_c2,disc_c2_half", 2),
+                      ("disc_c2,disc_c3,disc_c4", 4)):
+        calls.clear()
+        dcgan.make_discriminator(remat=True, remat_policy=policy)(x)
+        assert len(calls) == n, policy
 
 
 def test_remat_recomputes_in_the_backward_pass():
