@@ -102,6 +102,25 @@ Run from the root of a checkout, it
 10. drives one 5:1 cycle of the DCGAN at its default batch 256: 6 resident
    launches and nothing else; then ``sample.py`` writes a PNG grid whose
    header and size are checked;
+10b. drives the eval path with fixed-seed random InceptionV3 weights
+   (tf2015, 1008 classes, written to a temporary npz at
+   ``OTGAN_INCEPTION_WEIGHTS``): the card's float32 pool features and
+   logits of 16 images, through the scorers' own switch that holds TF32
+   off, within 1e-4 (relative to the largest value) of the same network in
+   float64 on the CPU, while the same forward with TF32 allowed must miss
+   that tolerance; the golden pins of ``tests/test_eval_golden_pins.py`` at
+   that file's tolerances; ``python -m otgan_tpu_torch.eval.fid`` on 10 000
+   synthetic images, then ``evaluate`` on phase 10's checkpoint at 10 000
+   samples and 10 splits with FID against those statistics, counters zeroed
+   just before (no Sinkhorn kernel may launch), printing IS, FID, seconds
+   and img/s; then one trainer eval event, the DCGAN at batch 256 under
+   ``--eval_fid`` with 1000 samples: ``metrics.jsonl`` must hold the raw
+   and EMA scores and FIDs and the running max at epoch 1;
+10c. writes phase 10's state in the JAX package's checkpoint format
+   (``convert.jax_leaves``) into a new run directory, reads it back equal
+   to the port-format restore, and resumes there with ``--load_params``:
+   the JAX format is read, the run starts at epoch 2 and takes 3 finite
+   steps;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
@@ -922,6 +941,247 @@ def dcgan_b256_phase(card: str) -> dict:
     return res
 
 
+# the golden pins of tests/test_eval_golden_pins.py: values and tolerances
+GOLDEN_PINS = {"is_mean": (1.0160765195518469, 2e-4), "is_std": (0.0010448366920140506, 5e-3),
+               "mu_norm": (25.178570896546223, 1e-4), "sig_trace": (0.30917493054585166, 2e-4),
+               "ref_mu_norm": (25.237122748069535, 1e-4), "fid": (0.27727853457426554, 1e-3)}
+# float32 pool features and logits against float64, relative to the largest
+# value: float32 convs read ~1e-6 there (5e-7 against the JAX package on a
+# CPU), TF32 convs (10-bit mantissa) ~1e-3; the check proves it fails TF32
+F32_TOL = 1e-4
+EVAL_SAMPLES = 10000
+
+
+def eval_precision_check(net, card: str) -> dict:
+    """The card's float32 pool features and logits of 16 images, through
+    the scorers' own path (``scoring_mode``: TF32 off), against the same
+    network in float64 on the CPU on the same 299^2 inputs; then the same
+    forward with TF32 allowed, which must miss the tolerance (so the check
+    can see TF32). TF32 is switched on for cuDNN and matmuls before, as a
+    bf16 training run leaves it, so only the scorers' own switch holds it off."""
+    import copy
+
+    import numpy as np
+    import torch
+    from otgan_tpu_torch.eval import fid as fid_mod
+    from otgan_tpu_torch.eval import inception as inc
+
+    imgs = np.random.default_rng(7).integers(0, 256, (16, 32, 32, 3)).astype(np.uint8)
+    keep = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        feats = torch.from_numpy(fid_mod.pool_features(imgs, net=net, batch=16))
+        with inc.scoring_mode():
+            x = inc.preprocess(torch.from_numpy(imgs).cuda(), net.variant)
+            logits = net(x).cpu()
+        with torch.inference_mode():
+            feats_tf32 = net.pool_features(x).cpu()
+            logits_tf32 = net(x).cpu()
+            torch.set_num_threads(os.cpu_count() or 1)
+            net64 = copy.deepcopy(net).cpu().double()
+            x64 = x.cpu().double()
+            feats64 = net64.pool_features(x64)
+            logits64 = net64.fc(feats64)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = keep
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    res = {"features_rel_err": rel(feats, feats64), "logits_rel_err": rel(logits, logits64),
+           "tf32_features_rel_err": rel(feats_tf32, feats64),
+           "tf32_logits_rel_err": rel(logits_tf32, logits64), "tol": F32_TOL}
+    print(f"eval: float32 on the card vs float64 on the CPU, 16 images at 299^2 on {card}: "
+          + json.dumps(res), flush=True)
+    if not (res["features_rel_err"] <= F32_TOL and res["logits_rel_err"] <= F32_TOL):
+        raise AssertionError(f"the card's float32 Inception forward is off: {res}")
+    if not max(res["tf32_features_rel_err"], res["tf32_logits_rel_err"]) > F32_TOL:
+        raise AssertionError(f"the tolerance does not see TF32: {res}")
+    return res
+
+
+def eval_golden_pins(net, card: str) -> dict:
+    """``tests/test_eval_golden_pins.py`` on the card: 32 generated images
+    in two batches of 16 through the one-pass scorer, 32 reference images
+    through ``pool_features``; each pinned value at that file's tolerance."""
+    import numpy as np
+    import torch
+    from otgan_tpu_torch.eval import fid as fid_mod
+
+    img_rng = np.random.default_rng(2025)
+    gen_imgs = img_rng.integers(0, 256, (32, 32, 32, 3)).astype(np.float32)
+    ref_imgs = img_rng.integers(0, 256, (32, 32, 32, 3)).astype(np.float32)
+    batches = [torch.from_numpy(gen_imgs[i * 16:(i + 1) * 16] / 127.5 - 1.0).cuda()
+               for i in range(2)]
+    (m, s), (mu, sig) = fid_mod.combined_eval_from_sampler(lambda i: batches[i], 32, splits=2,
+                                                           net=net, batch=16)
+    mu_r, sig_r = fid_mod.feature_statistics(fid_mod.pool_features(ref_imgs, net=net, batch=16))
+    got = {"is_mean": m, "is_std": s, "mu_norm": float(np.linalg.norm(mu)),
+           "sig_trace": float(np.trace(sig)), "ref_mu_norm": float(np.linalg.norm(mu_r)),
+           "fid": fid_mod.frechet_distance(mu, sig, mu_r, sig_r)}
+    rel = {k: abs(got[k] - want) / abs(want) for k, (want, _) in GOLDEN_PINS.items()}
+    print(f"eval: golden pins on {card}: values {json.dumps(got)}, relative errors "
+          f"{json.dumps(rel)}", flush=True)
+    bad = [k for k, (_, tol) in GOLDEN_PINS.items() if not rel[k] <= tol]
+    if bad:
+        raise AssertionError(f"golden pins missed on the card: {bad}")
+    return {"values": got, "rel_err": rel}
+
+
+def eval_phase(card: str, b256_dir: str) -> dict:
+    """The eval path: random tf2015 weights (1008 classes) written to a
+    temporary npz at ``OTGAN_INCEPTION_WEIGHTS``; the precision check and
+    the golden pins; ``python -m otgan_tpu_torch.eval.fid`` on 10 000 of
+    the trainer's synthetic images, then ``evaluate`` on phase 10's
+    checkpoint at 10 000 samples, 10 splits, FID against those statistics,
+    every launch counter zeroed just before (the eval path launches none of
+    the Sinkhorn kernels); then one trainer eval event on the DCGAN at
+    batch 256 under ``--eval_fid``."""
+    import tempfile
+
+    import torch
+    from otgan_tpu_torch import evaluate as evaluate_mod
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.eval import fid as fid_mod
+    from otgan_tpu_torch.eval import inception as inc
+    from otgan_tpu_torch.eval import random_weights as rw
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    keep_env = os.environ.get("OTGAN_INCEPTION_WEIGHTS")
+    try:
+        os.environ["OTGAN_INCEPTION_WEIGHTS"] = rw.save_npz(
+            os.path.join(tmp, "inception_random.npz"), seed=2024, variant="tf2015",
+            num_classes=1008)
+        net = inc.load_net(device="cuda")
+        res = {"precision": eval_precision_check(net, card), "golden": eval_golden_pins(net, card)}
+
+        stats = os.path.join(tmp, "fid_stats.npz")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fid_mod.main(["--synthetic_data", "--synthetic_size", str(EVAL_SAMPLES), "--seed", "1",
+                      "--out", stats])
+        torch.cuda.synchronize()
+        res["fid_stats_s"] = time.time() - t0
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = evaluate_mod.main(["--save_dir", b256_dir, "--num_samples", str(EVAL_SAMPLES),
+                                 "--splits", "10", "--fid_stats_path", stats])
+        torch.cuda.synchronize()
+        res["evaluate_s"] = time.time() - t0
+        launches = train_mod.kernel_launches()
+        res.update(evaluate=out, evaluate_img_per_s=EVAL_SAMPLES / res["evaluate_s"],
+                   fid_stats_img_per_s=EVAL_SAMPLES / res["fid_stats_s"],
+                   evaluate_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   evaluate_launches=launches)
+        print(f"eval: fid CLI over {EVAL_SAMPLES} synthetic images {res['fid_stats_s']:.1f} s "
+              f"({res['fid_stats_img_per_s']:.0f} img/s); evaluate at {EVAL_SAMPLES} samples, "
+              f"10 splits, inception batch {inc.default_batch()}: IS {out['inception_score']} +- "
+              f"{out['inception_std']}, FID {out['fid']}, {res['evaluate_s']:.1f} s "
+              f"({res['evaluate_img_per_s']:.0f} img/s, generation and two passes included), "
+              f"peak {res['evaluate_peak_gb']:.2f} GB; Sinkhorn launches {launches} on {card}",
+              flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"the eval path launched a Sinkhorn kernel: {launches}")
+        if not all(math.isfinite(out[k]) for k in ("inception_score", "inception_std", "fid")):
+            raise AssertionError(f"evaluate gave non-finite scores: {out}")
+        res["train_event"] = train_eval_event(card)
+    finally:
+        if keep_env is None:
+            os.environ.pop("OTGAN_INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["OTGAN_INCEPTION_WEIGHTS"] = keep_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def train_eval_event(card: str) -> dict:
+    """One eval event of the trainer: the DCGAN at batch 256, 2 epochs of 2
+    batches, ``--eval_every_epochs 2 --eval_fid``, 1000 samples of the raw
+    generator and of the EMA; the FID statistics of the 512 training images
+    computed at the event and cached beside the run."""
+    from otgan_tpu_torch import train as train_mod
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_eval")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.time()
+    train_mod.main(["--synthetic_data", "--synthetic_size", "512", "--max_epochs", "2",
+                    "--eval_every_epochs", "2", "--inception_samples", "1000",
+                    "--inception_splits", "10", "--eval_fid", "--save_every_epochs", "100",
+                    "--save_dir", run_dir])
+    wall = time.time() - t0
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    got = {k: r[k] for r in recs for k in r if k in (
+        "inception_score", "inception_std", "ema_inception_score", "ema_inception_std", "fid",
+        "ema_fid", "max_inception_score", "max_inception_epoch")}
+    epoch_end = [r["time"] for r in recs if r.get("epoch") == 1]
+    event_s = max(r["time"] for r in recs if "max_inception_score" in r) - epoch_end[0] if (
+        epoch_end and "max_inception_score" in got) else None
+    res = dict(scores=got, wall_s=wall, event_s=event_s,
+               launches=epoch_records(run_dir)[-1]["launches"],
+               fid_stats_cached=os.path.exists(os.path.join(run_dir, "fid_stats.npz")))
+    print(f"eval: the trainer's eval event (DCGAN batch 256, --eval_fid, 1000 samples raw and "
+          f"EMA) on {card}: " + json.dumps(res), flush=True)
+    want = ("inception_score", "ema_inception_score", "fid", "ema_fid", "max_inception_score")
+    if not all(k in got and math.isfinite(got[k]) for k in want) or not res["fid_stats_cached"]:
+        raise AssertionError(f"the trainer's eval event is incomplete: {res}")
+    if got["max_inception_epoch"] != 1:
+        raise AssertionError(f"the eval event was not at epoch 1: {got}")
+    check_tier_path(res["launches"], "resident", "the eval run's training (metrics.jsonl)")
+    return res
+
+
+def jax_resume_phase(card: str, b256_dir: str) -> dict:
+    """Resume on the card from a checkpoint in the JAX package's format:
+    phase 10's state written as the JAX ``TrainState`` leaves
+    (``convert.jax_leaves``, the order the CPU tests hold against
+    ``otgan_tpu``'s writer) into a new run directory, read back into a
+    fresh state (equal, bit for bit, to the port-format restore of the same
+    checkpoint), then ``--load_params`` there: the trainer must say it read
+    the JAX format, start at epoch 2 and take 3 finite steps."""
+    import numpy as np
+    import torch
+    from otgan_tpu_torch import convert
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils import checkpoint as ckpt
+
+    src = ckpt.latest_checkpoint(b256_dir)
+    cfg = TrainConfig.load(os.path.join(b256_dir, "config.json"))
+    engine = Engine(cfg, "cuda")
+    x_init = np.zeros((8, 32, 32, 3), np.uint8)
+    port_state, _ = engine.init_state(cfg.seed, x_init)
+    ckpt.restore_checkpoint(src, port_state)
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_jax_format")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    path = os.path.join(run_dir, os.path.basename(src))
+    leaves = convert.jax_leaves(port_state, rng_key=(0, 1))
+    np.savez(path, **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+    jax_state, _ = engine.init_state(cfg.seed + 1, x_init)
+    ckpt.restore_checkpoint(path, jax_state)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(ckpt._named_tensors(port_state),
+                                                            ckpt._named_tensors(jax_state)))
+    if not (same and jax_state.step == port_state.step and ckpt.checkpoint_format(path) == "jax"):
+        raise AssertionError("the JAX-format file did not restore to the state it was made of")
+    saved_step = port_state.step
+    del engine, port_state, jax_state
+    argv = ["--synthetic_data", "--synthetic_size", "768", "--log_every_steps", "1",
+            "--save_every_epochs", "100", "--save_dir", run_dir, "--load_params",
+            "--max_epochs", "3"]
+    result = train_mod.main(argv)
+    epochs = [r["epoch"] for r in epoch_records(run_dir)]
+    res = dict(leaves=len(leaves), saved_step=saved_step, epochs=epochs,
+               steps=[{k: r[k] for k in ("step", "kind", "dist", "entropy")} for r in result.steps])
+    print(f"JAX-format resume on {card}: " + json.dumps(res), flush=True)
+    if epochs != [2] or result.state.step != saved_step + 3 or not all(
+            math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in result.steps):
+        raise AssertionError(f"the resume from the JAX-format file is wrong: {res}")
+    return res
+
+
 def trace_phase(card: str) -> dict:
     """One 5:1 cycle of ``--preset train_py`` under ``--profile_dir`` and
     ``--debug_nans``, run as its own process (the CLI, as a user runs it; a
@@ -1359,6 +1619,12 @@ def main() -> int:
     # ---- 9. the toy path: train, resume, sample; 10. the DCGAN at batch 256 ----
     toy = toy_phase(card)
     b256 = dcgan_b256_phase(card)
+
+    # ---- 10b. the eval path; 10c. resume from a JAX-format checkpoint ----
+    b256_dir = os.path.join(REPO, "runs", "chip_smoke_b256")
+    torch.cuda.empty_cache()
+    evaluation = eval_phase(card, b256_dir)
+    jax_resume = jax_resume_phase(card, b256_dir)
 
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"

@@ -141,8 +141,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.checkpoint_backend != "npz":
         later.append("--checkpoint_backend orbax (with torch.distributed.checkpoint, "
                      "a later checkpoint slice)")
-    if cfg.eval_fid:
-        later.append("--eval_fid (eval slice)")
     if cfg.matching_precision != "highest":
         later.append(
             f"--matching_precision {cfg.matching_precision} (needs a "

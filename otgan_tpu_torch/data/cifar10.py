@@ -5,10 +5,12 @@ reference's ``data/cifar10_data.py``).
 uint8, downloading and extracting the archive first if it is absent.
 ``DataLoader`` keeps the dataset uint8 NHWC in host memory and emits
 shuffled, randomly flipped batches: raw uint8 by default (the engine
-normalises on the device), or float32 in [-1, 1]. It is the JAX package's
-numpy path, drawing from the same ``numpy.random.Generator`` in the same
-order, so one seed gives both packages the same batches. The native ctypes
-assembler and the background prefetch thread come in a later slice.
+normalises on the device), or float32 in [-1, 1], with their labels under
+``return_labels``; ``images_255`` gives the real side of the FID
+statistics. It is the JAX package's numpy path, drawing from the same
+``numpy.random.Generator`` in the same order, so one seed gives both
+packages the same batches. The native ctypes assembler and the background
+prefetch thread come in a later slice.
 """
 
 from __future__ import annotations
@@ -76,16 +78,18 @@ def synthetic(rng: np.random.Generator, size: int) -> np.ndarray:
 class DataLoader:
     """In-RAM epoch iterator with shuffle and flip over uint8 NHWC images.
 
-    ``data`` (uint8 NHWC) replaces loading ``data_dir``; ``out_dtype`` is
-    ``"uint8"`` (raw bytes) or ``"float32"`` (``x / 127.5 - 1``).
+    ``data`` (uint8 NHWC) and ``labels`` replace loading ``data_dir``;
+    ``out_dtype`` is ``"uint8"`` (raw bytes) or ``"float32"`` (``x / 127.5 -
+    1``); ``return_labels`` makes batches ``(x, labels)``.
     """
 
     def __init__(self, data_dir: str, subset: str = "train", batch_size: int = 256,
                  rng: Optional[np.random.Generator] = None, shuffle: bool = True,
                  augment_flip: bool = True, data: Optional[np.ndarray] = None,
-                 out_dtype: str = "uint8"):
+                 out_dtype: str = "uint8", labels: Optional[np.ndarray] = None,
+                 return_labels: bool = False):
         if data is None:
-            raw, _ = load(os.path.join(data_dir, "cifar-10-python"), subset)
+            raw, labels = load(os.path.join(data_dir, "cifar-10-python"), subset)
             data = np.transpose(raw, (0, 2, 3, 1))
         if data.dtype != np.uint8 or data.ndim != 4:
             raise ValueError(f"expected uint8 NHWC images, got {data.dtype} {data.shape}")
@@ -97,6 +101,10 @@ class DataLoader:
         self.augment_flip = augment_flip
         self.rng = rng if rng is not None else np.random.default_rng(1)
         self.out_dtype = out_dtype
+        if return_labels and labels is None:
+            raise ValueError("return_labels needs labels (the synthetic set has none)")
+        self.labels = labels
+        self.return_labels = return_labels
 
     @property
     def num_batches(self) -> int:
@@ -107,11 +115,12 @@ class DataLoader:
             return x.astype(np.float32) / 127.5 - 1.0
         return x
 
-    def _make_batch(self, idx: np.ndarray) -> np.ndarray:
+    def _make_batch(self, idx: np.ndarray):
         x = self.data[idx]
         if self.augment_flip:
             x = random_flip(x, self.rng)
-        return self._emit(x)
+        x = self._emit(x)
+        return (x, self.labels[idx]) if self.return_labels else x
 
     def init_batch(self, n: Optional[int] = None) -> np.ndarray:
         """The first ``n`` (default ``batch_size``) examples, unshuffled and
@@ -122,6 +131,11 @@ class DataLoader:
                 f"init_batch({n}) exceeds the {self.data.shape[0]} data rows"
             )
         return self._emit(self.data[:n].copy())
+
+    def images_255(self, limit: Optional[int] = None) -> np.ndarray:
+        """The first ``limit`` (default all) images, uint8 NHWC in [0, 255],
+        unshuffled and unflipped: the real side of the FID statistics."""
+        return self.data if limit is None else self.data[:limit]
 
     def epoch(self) -> Iterator[np.ndarray]:
         """One pass: ``num_batches`` whole batches."""

@@ -4,8 +4,10 @@ sampling blocks (``train.py:233-243``) on its own.
 
 ``python -m otgan_tpu_torch.sample --save_dir D [--checkpoint P] [--ema]
 --num_samples N [--device cpu]`` rebuilds the run's configuration from
-``D/config.json``, restores the latest (or the named) full-state checkpoint,
-and writes ``samples.npz`` (key ``samples``) and, for images, a
+``D/config.json`` (the port's or the JAX package's: the fields are the
+same), restores the latest (or the named) full-state checkpoint, written by
+the port or by the JAX package (``utils/checkpoint.py`` reads both), and
+writes ``samples.npz`` (key ``samples``) and, for images, a
 ``samples.png`` grid of the first 100. Latents come in batches of
 ``--batch_size``, batch i drawn from a generator seeded ``--seed + i``. It
 runs on the card unless asked for the CPU.
@@ -42,12 +44,16 @@ def build_run_config(args) -> TrainConfig:
 @torch.no_grad()
 def generate(cfg: TrainConfig, checkpoint: str, num_samples: int, ema: bool = False,
              seed: int = 0, device=None) -> np.ndarray:
-    """``num_samples`` samples of the checkpoint's generator (or its EMA)."""
+    """``num_samples`` samples of the checkpoint's generator (or its EMA);
+    ``checkpoint`` is a file of either package."""
     # the state is overwritten by the checkpoint: a one-process template
     # from a small batch, without the data-dependent init, is enough; the
-    # run's microbatching is a training option, not a sampling one
+    # run's microbatching, hosts, checkpoint backend and matching precision
+    # are training options, not sampling ones
     engine = Engine(dataclasses.replace(cfg, data_dependent_init=False, num_devices=0,
-                                        grad_accum=1), device)
+                                        grad_accum=1, multihost=False,
+                                        checkpoint_backend="npz",
+                                        matching_precision="highest"), device)
     if cfg.model == "toy_mlp":
         x_init = sample_8gaussians(np.random.default_rng(0), 2)
     else:

@@ -26,24 +26,42 @@ and background writes from the config), and beside it ``distances.npz``,
 the per-epoch mean distances of the run (an epoch without a step of one
 kind logs that kind's last mean with ``dist_*_carried``). ``--load_params``
 resumes from ``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
-after it; the data generator starts afresh from ``--seed``, as in the JAX
-trainer. Inception/FID eval and host prefetch come in later slices; the JAX
-trainer's TPU memory warnings (``otgan_tpu/train.py:240-280``) are not
-ported, their limits being a TPU's.
+after it, and says which format it read: the port's, or the JAX package's
+``otgan_state-<epoch>.npz`` (same name; ``utils/checkpoint.py`` tells them
+apart by their keys), so a TPU run's directory resumes here. The data
+generator starts afresh from ``--seed``, as in the JAX trainer.
+
+Every ``--eval_every_epochs`` epochs (not the first epoch of a run, never
+for the toy) it scores ``--inception_samples`` generated images
+(``eval/``, weights at ``OTGAN_INCEPTION_WEIGHTS``; the event is skipped
+with a message when they are missing), the raw generator then the EMA:
+``inception_score`` / ``inception_std`` and, under ``--eval_fid``, ``fid``
+against the real data's statistics, each with an ``ema_`` twin, then the
+reference's running ``max_inception_score`` / ``max_inception_epoch``
+over both (``train.py:245-273``). The statistics come from
+``--fid_stats_path`` (``python -m otgan_tpu_torch.eval.fid``), else from
+the training images once, cached to ``<save_dir>/fid_stats.npz``; a user's
+``--fid_stats_path`` is never written. Host prefetch comes in a later
+slice; the JAX trainer's TPU memory warnings
+(``otgan_tpu/train.py:240-280``) are not ported, their limits being a TPU's.
 
 On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
 --num_devices K ...``, one process per GPU (NCCL; gloo with ``--device
 cpu``). Every rank reads the same global batches; only rank 0 writes
-``config.json``, ``metrics.jsonl``, samples and checkpoints, and prints.
+``config.json``, ``metrics.jsonl``, samples and checkpoints, runs the eval
+events (on its replica of the state, so the scores are the single-process
+ones; the other ranks wait at the next step's collective), and prints.
 Every rank ends in a barrier, then leaves the process group.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
-from typing import List, NamedTuple, Optional
+import zipfile
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +71,9 @@ from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namesp
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
 from otgan_tpu_torch.data.toy import sample_8gaussians
 from otgan_tpu_torch.engine import Engine, TrainState
+from otgan_tpu_torch.eval import fid as fid_mod
+from otgan_tpu_torch.eval import inception as inc
+from otgan_tpu_torch.eval.inception_net import InceptionV3
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -61,6 +82,7 @@ from otgan_tpu_torch.ops import (
 )
 from otgan_tpu_torch.parallel.mesh import init_from_env
 from otgan_tpu_torch.utils.checkpoint import (
+    checkpoint_format,
     checkpoint_step,
     latest_checkpoint,
     restore_checkpoint,
@@ -129,7 +151,117 @@ class _NoLogger:
         pass
 
 
+@dataclasses.dataclass
+class EvalCache:
+    """What a run's eval events share: the classifier, loaded at the first
+    event on the run's device, and the FID reference statistics by path
+    (None: FID is off for the run)."""
+
+    net: Optional[InceptionV3] = None
+    fid_stats: Dict[str, Optional[tuple]] = dataclasses.field(default_factory=dict)
+
+
+def check_eval_flags(cfg: TrainConfig) -> None:
+    """Fail at launch, not hours later at the first eval event."""
+    if cfg.inception_batch < 0:
+        raise ValueError(f"--inception_batch must be >= 1 (or 0 for the default), "
+                         f"got {cfg.inception_batch}")
+    if cfg.eval_fid and cfg.fid_stats_path and not os.path.exists(cfg.fid_stats_path):
+        # a missing explicit path is almost always a typo: computing this
+        # run's statistics and writing them THERE would mislabel later runs
+        raise FileNotFoundError(
+            f"--fid_stats_path {cfg.fid_stats_path} does not exist — precompute it with "
+            "`python -m otgan_tpu_torch.eval.fid --data_dir ... --out ...`, or drop the "
+            "flag to compute and cache statistics from this run's data under --save_dir")
+
+
+def _fid_reference_stats(cfg: TrainConfig, loader, net: InceptionV3, cache: EvalCache):
+    """(mu, sigma) of the real data for the FID, or None to skip FID this
+    run. From ``--fid_stats_path`` (or the run's cached copy) when present,
+    else computed once from the training images and cached to
+    ``<save_dir>/fid_stats.npz``. A ``--fid_stats_path`` that exists but
+    cannot be used (another weight variant, a foreign or broken archive)
+    turns FID off with a message; it is never overwritten and never
+    replaced by this run's statistics. Decided once per path and run."""
+    user_path = bool(cfg.fid_stats_path)
+    path = cfg.fid_stats_path or os.path.join(cfg.save_dir, "fid_stats.npz")
+    if path in cache.fid_stats:
+        return cache.fid_stats[path]
+    if user_path and not os.path.exists(path):
+        # launch validation rejects this; the file vanished during the run
+        print(f"--fid_stats_path {path} no longer exists — FID disabled for this run "
+              "(path left untouched)", flush=True)
+        cache.fid_stats[path] = None
+        return None
+    stats = None
+    if os.path.exists(path):
+        try:
+            stats = fid_mod.load_reference_statistics(path, expect_variant=net.variant)
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
+            if user_path:
+                print(f"cannot use --fid_stats_path {path}: {e!r} — FID disabled for this "
+                      "run (file left untouched)", flush=True)
+                cache.fid_stats[path] = None
+                return None
+            print(f"recomputing FID reference statistics: {e!r}", flush=True)
+    if stats is None:
+        imgs = loader.images_255()
+        print(f"computing FID reference statistics over {imgs.shape[0]} real images",
+              flush=True)
+        stats = fid_mod.reference_statistics(imgs, net=net, batch=cfg.inception_batch or None)
+        fid_mod.save_reference_statistics(path, stats[0], stats[1], net.variant, imgs.shape[0])
+    cache.fid_stats[path] = stats
+    return stats
+
+
+def _maybe_inception_eval(cfg: TrainConfig, engine: Engine, state: TrainState, logger,
+                          step: int, loader, cache: EvalCache) -> Optional[float]:
+    """One eval event (``otgan_tpu/train.py:671-752``): the raw generator,
+    then the EMA, each scored on ``--inception_samples`` images drawn in
+    batches of ``--batch_size`` from latents seeded 10000, 10001, ...;
+    logs the scores (and FIDs) and returns the better score, or None when
+    there are no weights."""
+    if cache.net is None:
+        try:
+            cache.net = inc.load_net(device=engine.device)
+        except FileNotFoundError as e:
+            print(f"inception weights unavailable, skipping eval: {e}", flush=True)
+            return None
+    net, batch = cache.net, cfg.inception_batch or None
+    ref_stats = _fid_reference_stats(cfg, loader, net, cache) if cfg.eval_fid else None
+    best = None
+    for ema in (False, True):
+        def sampler(seed, _ema=ema):
+            gen = torch.Generator(device=engine.device).manual_seed(10_000 + seed)
+            return engine.sample(state, engine.latents(cfg.batch_size, gen), ema=_ema)
+
+        tag = "ema_" if ema else ""
+        n, splits = cfg.inception_samples, cfg.inception_splits
+        mu = sigma = None
+        if ref_stats is not None and os.environ.get("OTGAN_EVAL_DEVICE_REDUCE", "1") == "0":
+            # the host-float64 score protocol, pinned by the user: the
+            # combined scorer reduces on the device, so two passes
+            mean, std = inc.inception_score_from_sampler(sampler, n, splits, net=net,
+                                                         batch=batch)
+            mu, sigma = fid_mod.feature_statistics_from_sampler(sampler, n, net=net, batch=batch)
+        elif ref_stats is not None:
+            (mean, std), (mu, sigma) = fid_mod.combined_eval_from_sampler(
+                sampler, n, splits, net=net, batch=batch)
+        else:
+            mean, std = inc.inception_score_from_sampler(sampler, n, splits, net=net, batch=batch)
+        if mu is not None:
+            fid_val = fid_mod.frechet_distance(mu, sigma, *ref_stats)
+            logger.log(step, **{f"{tag}fid": fid_val})
+            print(f"{'EMA ' if ema else ''}FID was {fid_val:.4f}", flush=True)
+        logger.log(step, **{f"{tag}inception_score": mean, f"{tag}inception_std": std})
+        print(f"{'EMA ' if ema else ''}inception score was {mean:.6f}, std was {std:.3f}",
+              flush=True)
+        best = mean if best is None else max(best, mean)
+    return best
+
+
 def train(cfg: TrainConfig, device=None) -> TrainResult:
+    check_eval_flags(cfg)
     engine = Engine(cfg, device)  # rejects options of later slices first
     rank0 = engine.rank == 0
     if rank0:
@@ -161,10 +293,12 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
     if cfg.load_params:
         path = cfg.model_name or latest_checkpoint(cfg.save_dir)
         if path:
+            fmt = checkpoint_format(path)
             restore_checkpoint(path, state)
             start_epoch = checkpoint_step(path) + 1
             if rank0:
-                print(f"restored {path}; resuming at epoch {start_epoch}", flush=True)
+                print(f"restored {path} ({fmt} checkpoint format); resuming at epoch "
+                      f"{start_epoch}", flush=True)
         elif rank0:
             print("no checkpoint found; training from scratch", flush=True)
     steps: List[dict] = []
@@ -175,6 +309,9 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         launches0 = kernel_launches()
         mean_dist_gen: List[Optional[float]] = []
         mean_dist_disc: List[Optional[float]] = []
+        # the reference's running max over raw and EMA scores (train.py:264-272)
+        max_inception_score, max_inception_epoch = float("-inf"), -1
+        eval_cache = EvalCache()
         start_time = time.time()
         for epoch in range(start_epoch, cfg.max_epochs):
             begin = time.time()
@@ -215,6 +352,17 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             for prefix, ema in (("sample", False), ("ema_sample", True)):
                 save_samples(engine, state, os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
                              seed=epoch, ema=ema)
+            # periodic inception eval (train.py:245-273)
+            if not is_toy and (epoch + 1) % cfg.eval_every_epochs == 0 and epoch != start_epoch:
+                best = _maybe_inception_eval(cfg, engine, state, logger, state.step, loader,
+                                             eval_cache)
+                if best is not None:
+                    if best > max_inception_score:
+                        max_inception_score, max_inception_epoch = best, epoch
+                    print(f"max inception score was {max_inception_score:.6f}, iter was "
+                          f"{max_inception_epoch}", flush=True)
+                    logger.log(state.step, max_inception_score=max_inception_score,
+                               max_inception_epoch=max_inception_epoch)
             # periodic checkpoint (train.py:275-281)
             if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
                 path = save_checkpoint(

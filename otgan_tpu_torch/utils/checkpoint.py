@@ -23,9 +23,14 @@ from the JAX package in memory). No pickled objects.
   long-term file per ``keep_every_hours`` window by mtime, as
   ``tf.train.Saver(max_to_keep, keep_checkpoint_every_n_hours)``.
 
-Orbax step directories (``<save_dir>/orbax/<step>``) are not read: the
-port's sharded checkpoints come with ``torch.distributed.checkpoint`` in a
-later slice.
+:func:`restore_checkpoint` also reads the JAX package's npz files, which
+bear the same name (``otgan_state-<epoch>.npz``) and hold the ``TrainState``
+leaves as ``leaf_<i>`` in pytree order (``leaf_<i>__bf16`` for bfloat16
+slots; ``otgan_tpu/utils/checkpoint.py:103-117``). The two are told apart by
+their keys (:func:`checkpoint_format`), never by the name, and a JAX file is
+read through ``convert.state_from_jax_leaves``. Orbax step directories
+(``<save_dir>/orbax/<step>``) are not read: the port's sharded checkpoints
+come with ``torch.distributed.checkpoint`` in a later slice.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from otgan_tpu_torch.convert import state_from_jax_leaves
 
 _PREFIX = "otgan_state"
 _BF16_SUFFIX = "__bf16"
@@ -178,15 +185,53 @@ def _load_arrays(path: str) -> Dict[str, np.ndarray]:
         return {k: data[k] for k in data.files}
 
 
+def _is_jax_format(arrays) -> bool:
+    return "leaf_0" in arrays or "leaf_0" + _BF16_SUFFIX in arrays
+
+
+def checkpoint_format(path: str) -> str:
+    """``"jax"`` for a file of the JAX package (``leaf_<i>`` keys), else
+    ``"port"`` (named keys, ``step``, ``rng_device``)."""
+    if os.path.isdir(path):
+        _load_arrays(path)  # raises: orbax step directories are not read
+    with np.load(path, allow_pickle=False) as data:
+        return "jax" if _is_jax_format(data.files) else "port"
+
+
+def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) -> float32, exactly."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _jax_leaves(arrays: Dict[str, np.ndarray], path: str) -> list:
+    """A JAX file's leaves in order, bfloat16 slots decoded to float32."""
+    leaves = []
+    for i in range(len(arrays)):
+        if f"leaf_{i}" in arrays:
+            leaves.append(arrays[f"leaf_{i}"])
+        elif f"leaf_{i}{_BF16_SUFFIX}" in arrays:
+            leaves.append(_bf16_to_f32(arrays[f"leaf_{i}{_BF16_SUFFIX}"]))
+        else:
+            break
+    if len(leaves) != len(arrays):
+        raise ValueError(f"{path}: a JAX checkpoint's keys must be leaf_0 .. "
+                         f"leaf_{len(arrays) - 1}; got {sorted(arrays)[:5]}")
+    return leaves
+
+
 @torch.no_grad()
 def restore_checkpoint(path: str, state, rng: bool = True):
     """Restore ``path`` into ``state`` (made by ``Engine.init_state`` for the
-    same run configuration) in place and return it. Names and shapes are
-    checked; bfloat16 slots are decoded. ``rng=False`` leaves the run
+    same run configuration) in place and return it; the file may be the
+    port's or the JAX package's. Names (or the JAX leaf order) and shapes
+    are checked; bfloat16 slots are decoded. ``rng=False`` leaves the run
     generator as it is (a sampler that draws from its own seeds, perhaps on
-    another device than the run)."""
+    another device than the run); from a JAX file it is seeded from the JAX
+    key (``convert.seed_from_jax_key``)."""
     wait_for_pending_saves()  # never read around an in-flight write
     arrays = _load_arrays(path)
+    if _is_jax_format(arrays):
+        return state_from_jax_leaves(state, _jax_leaves(arrays, path), rng=rng)
     for key, t in _named_tensors(state):
         if key in arrays:
             src = torch.from_numpy(arrays.pop(key))

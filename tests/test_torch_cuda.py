@@ -433,3 +433,64 @@ def test_col_potential_is_one_device_kernel_an_iteration(cuda_device):
         if kernels:
             break
     assert len(kernels) == 3 and all("local_step" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_inception_scoring_on_card_matches_cpu(cuda_device):
+    """The eval path on the card (float32, TF32 held off by the scorers even
+    when a bf16 run left it on) against the same scorers on the CPU: pool
+    features within 1e-4 of the largest value, the one-pass IS within 1e-5,
+    and FID statistics within 1e-3; no Sinkhorn kernel launches."""
+    from otgan_tpu_torch.eval import fid as fid_mod
+    from otgan_tpu_torch.eval.inception_net import InceptionV3
+    from otgan_tpu_torch.eval.random_weights import scaled_params
+
+    tree = scaled_params(seed=2024)
+    nets = {d: InceptionV3.from_params(tree, "tf2015", device=d) for d in ("cpu", cuda_device)}
+    rng = np.random.default_rng(4)
+    imgs = rng.integers(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+    batches = [rng.uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32) for _ in range(2)]
+    keep = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        feats = {d: fid_mod.pool_features(imgs, net=n, batch=2) for d, n in nets.items()}
+        combined = {d: fid_mod.combined_eval_from_sampler(
+            lambda i, _d=d: torch.from_numpy(batches[i]).to(_d), 9, splits=3, net=n, batch=4)
+            for d, n in nets.items()}
+        assert torch.backends.cudnn.allow_tf32  # the caller's setting comes back
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = keep
+    f_cpu, f_gpu = feats["cpu"], feats[cuda_device]
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-4 * np.abs(f_cpu).max()
+    (m_c, _), (mu_c, sig_c) = combined["cpu"]
+    (m_g, _), (mu_g, sig_g) = combined[cuda_device]
+    np.testing.assert_allclose(m_g, m_c, rtol=1e-5)
+    assert np.abs(mu_g - mu_c).max() <= 1e-4 * np.abs(mu_c).max()
+    assert np.abs(sig_g - sig_c).max() <= 1e-3 * np.abs(sig_c).max()
+
+
+@pytest.mark.cuda
+def test_jax_format_checkpoint_restores_on_card(cuda_device, tmp_path):
+    """A toy state on the card written as the JAX package's leaves
+    (``convert.jax_leaves``) restores into a fresh state on the card equal
+    to it, bit for bit, the generator seeded from the key."""
+    from otgan_tpu_torch import convert
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.data.toy import sample_8gaussians
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils import checkpoint as ckpt
+
+    eng = Engine(TrainConfig(model="toy_mlp", batch_size=32, sinkhorn_lambda=50.0,
+                             nr_sinkhorn_iter=10, nr_gen_per_disc=1), device=cuda_device)
+    x = sample_8gaussians(np.random.default_rng(0), 32)
+    state, _ = eng.init_state(0, x)
+    state, _ = eng.cycle(state, [x, x, x])
+    leaves = convert.jax_leaves(state, rng_key=(5, 6))
+    np.savez(tmp_path / "otgan_state-4.npz", **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+    fresh, _ = eng.init_state(1, x)
+    ckpt.restore_checkpoint(str(tmp_path / "otgan_state-4.npz"), fresh)
+    for (k, a), (_, b) in zip(ckpt._named_tensors(state), ckpt._named_tensors(fresh)):
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    assert fresh.step == state.step == 3
+    want = torch.Generator(device=cuda_device).manual_seed(convert.seed_from_jax_key([5, 6]))
+    assert torch.equal(fresh.rng.get_state(), want.get_state())
