@@ -121,13 +121,41 @@ Run from the root of a checkout, it
    to the port-format restore, and resumes there with ``--load_params``:
    the JAX format is read, the run starts at epoch 2 and takes 3 finite
    steps;
+12a. (several hosts; 12a-12d run before 11) holds the native batch
+   assembler (``data/native.py``, built with g++ on the card's host)
+   against its numpy path at batch 5000: the same bytes in uint8, float32
+   and bfloat16, both timed; fails if the library did not build;
+12b. runs one 5:1 cycle of ``--preset train_py --synthetic_data
+   --multihost`` (a world of one process through the manual flags
+   ``--coordinator_address --num_processes 1 --process_id 0``, NCCL) with
+   ``--host_prefetch`` and with ``--no_host_prefetch``, each its own
+   process (``chip_smoke.py --train``) under ``--profile_dir`` and
+   ``--checkpoint_backend orbax --checkpoint_slot_dtype bfloat16``: prints
+   cycle ms, img/s, peak memory and the device-idle ms between consecutive
+   steps from the trace (``utils/tracing.py::step_gaps``); each run must
+   launch the grid kernel 6 times and no plain version, take the native
+   host path, and the two must see the same batches (first step's dist
+   bitwise equal, later ones within 1e-4);
+12c. restores 12b's ``orbax/2`` (``torch.distributed.checkpoint``) into a
+   fresh state, equal to an npz of the same final state tensor for tensor
+   (restore seconds, directory bytes, and the write seconds of a timed
+   synchronous DCP write of that state); resumes it in a new process with
+   ``--load_params`` (DCP format read, epoch 3, 3 finite steps); then
+   ``sample.py`` and ``evaluate.py`` (random InceptionV3 weights, 1000
+   samples) read the directory;
+12d. with two or more cards: two "hosts", two ``torchrun`` agents
+   (``--nnodes 2``, c10d rendezvous on localhost, half the cards each),
+   ``--multihost --matching_layout rows`` at batch 5000 for one cycle, then
+   a resume: each process says ``process p/2 (local batch 2500)`` and the
+   local-step kernel's launches come from this run; on one card it says
+   why it did not run;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
    same work on this card and, as ``sfu_floor_ms``, its expf alone at the
    special-function units' peak; every number printed stands after the
    card's ``nvidia-smi`` name and power limit, the first line;
-12. prints ``{"ok": true, "device": {...}}`` as its last line.
+13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without CUDA it exits 1 at once.
@@ -1373,6 +1401,333 @@ def densenet_phase(card: str) -> dict:
                 dcgan_remat_max_rel_diff=dcgan_remat_step_check(card))
 
 
+MULTIHOST_TIMEOUT = 600
+
+
+def native_phase(card: str) -> dict:
+    """12a. The native batch assembler on the card's host against its numpy
+    path at batch 5000 of a train_py-sized uint8 set (10 000 CIFAR-shaped
+    images): the same bytes in uint8, float32 and bfloat16, each timed (the
+    median of 5 calls). Fails when the library did not build."""
+    import numpy as np
+    import torch
+    from otgan_tpu_torch.data import native
+
+    if not native.native_available():
+        raise AssertionError("the native batch assembler did not build on the card's host")
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, (10000, 32, 32, 3)).astype(np.uint8)
+    idx = rng.permutation(10000)[:BATCH]
+    flips = (rng.random(BATCH) < 0.5).astype(np.uint8)
+
+    def timed(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times))
+
+    res = {"native_available": True, "cpus": os.cpu_count()}
+    for dtype in ("uint8", "float32", "bfloat16"):
+        nat, nat_ms = timed(lambda: native.assemble_batch_u8(data, idx, flips, out_dtype=dtype))
+        ref, ref_ms = timed(lambda: native.assemble_batch_numpy(data, idx, flips, out_dtype=dtype))
+        if dtype == "bfloat16":
+            same = torch.equal(nat.view(torch.int16), ref.view(torch.int16))
+        else:
+            same = nat.dtype == ref.dtype and np.array_equal(nat, ref)
+        res[dtype] = {"native_ms": nat_ms, "numpy_ms": ref_ms, "same_bytes": bool(same)}
+        if not same:
+            raise AssertionError(f"the native and numpy assemblers differ in {dtype}")
+    print(f"12a native batch assembly at batch {BATCH} (gather, flip, convert) on the host of "
+          f"{card}: " + json.dumps(res), flush=True)
+    return res
+
+
+def train_report(argv) -> int:
+    """``chip_smoke.py --train ARGS``: ``otgan_tpu_torch.train ARGS`` in this
+    process, then one line ``train_report: {...}``: wall seconds, peak
+    device memory, the host path of the batches, and the final state written
+    twice for phase 12c: an npz reference (slots in bfloat16) and a timed
+    synchronous DCP write of the same state, each under ``<save_dir>``."""
+    import torch
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.data import native
+    from otgan_tpu_torch.utils import checkpoint as ckpt
+    from otgan_tpu_torch.utils import checkpoint_orbax
+
+    save_dir = argv[argv.index("--save_dir") + 1]
+    t0 = time.time()
+    result = train_mod.main(list(argv))
+    torch.cuda.synchronize()
+    report = {"wall_s": time.time() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "native": native.native_available(), "step": result.state.step}
+    ckpt.save_checkpoint(os.path.join(save_dir, "reference"), result.state, 0,
+                         slot_dtype="bfloat16")
+    t0 = time.time()
+    path = checkpoint_orbax.save_checkpoint(os.path.join(save_dir, "write_timing"), result.state,
+                                            0, slot_dtype="bfloat16", async_write=False)
+    report["dcp_write_s"] = time.time() - t0
+    report["dcp_bytes"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    print("train_report: " + json.dumps(report), flush=True)
+    return 0
+
+
+def train_process(argv, what: str) -> dict:
+    """``chip_smoke.py --train ARGV`` as its own process; its report."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = run_group([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--train", *argv],
+                    MULTIHOST_TIMEOUT, env)
+    if out.returncode != 0:
+        raise AssertionError(f"{what} failed (rc {out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    line = next(l for l in out.stdout.splitlines() if l.startswith("train_report: "))
+    return dict(json.loads(line[len("train_report: "):]), stdout=out.stdout)
+
+
+def one_process_world() -> list:
+    """The manual multi-host flags of a world of one process."""
+    return ["--multihost", "--coordinator_address", f"localhost:{free_port()}",
+            "--num_processes", "1", "--process_id", "0"]
+
+
+def prefetch_phase(card: str) -> dict:
+    """12b. One 5:1 cycle of ``--preset train_py --synthetic_data
+    --multihost`` (a world of one process through the manual flags) with
+    ``--host_prefetch`` and with ``--no_host_prefetch``, each its own
+    process under ``--profile_dir``, writing ``orbax/2`` with
+    ``--checkpoint_backend orbax --checkpoint_slot_dtype bfloat16``: cycle
+    ms, img/s, peak memory, the device-idle ms between consecutive steps
+    from the trace, 6 grid launches and no plain one; the two runs see the
+    same batches (first step's dist bitwise equal, later ones within 1e-4)."""
+    from otgan_tpu_torch.utils.tracing import step_gaps, trace_path
+
+    runs = {}
+    for label, flag in (("prefetch", "--host_prefetch"), ("inline", "--no_host_prefetch")):
+        run_dir = os.path.join(REPO, "runs", f"chip_smoke_multihost_{label}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        argv = ["--preset", "train_py", "--synthetic_data", "--synthetic_size", "10000",
+                "--max_epochs", "3", "--log_every_steps", "1", "--save_every_epochs", "3",
+                "--checkpoint_backend", "orbax", "--checkpoint_slot_dtype", "bfloat16",
+                "--save_dir", run_dir, "--profile_dir", os.path.join(run_dir, "trace"), flag,
+                *one_process_world()]
+        rep = train_process(argv, f"the multihost cycle ({flag})")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps = [r for r in recs if "kind" in r]
+        launches = [r for r in recs if "epoch" in r][-1]["launches"]
+        gaps = step_gaps(trace_path(os.path.join(run_dir, "trace")))
+        cycle_ms = sum(r["step_ms"] for r in steps)
+        # wall time from the first step's start to the last step's end: the
+        # host work between steps (and the epochs' ends) included
+        wall_ms = (steps[-1]["time"] - steps[0]["time"]) * 1e3 + steps[0]["step_ms"]
+        runs[label] = dict(run_dir=run_dir, cycle_ms=cycle_ms, img_per_s=BATCH * len(steps)
+                           / cycle_ms * 1e3, cycle_wall_ms=wall_ms, peak_gb=rep["peak_gb"],
+                           native=rep["native"], steps_ms=[r["step_ms"] for r in steps],
+                           dist=[r["dist"] for r in steps], entropy=[r["entropy"] for r in steps],
+                           idle_ms_between_steps=gaps["idle_ms"],
+                           gap_ms_between_steps=gaps["gaps_ms"],
+                           h2d_copy_ms_in_gaps=gaps["copy_ms"], launches=launches,
+                           dcp_write_s=rep["dcp_write_s"], dcp_bytes=rep["dcp_bytes"],
+                           host_line=next((l for l in rep["stdout"].splitlines()
+                                           if "host batches:" in l), ""))
+        print(f"12b multihost cycle, world of one process, {flag} on {card}: "
+              + json.dumps({k: v for k, v in runs[label].items() if k != "run_dir"}), flush=True)
+        if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
+            raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
+        if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+            raise AssertionError(f"non-finite dist or entropy in the multihost cycle ({flag})")
+        check_tier_path(launches, "grid", f"the multihost cycle ({flag})", want=6)
+        if not rep["native"] or "host batches: native" not in runs[label]["host_line"]:
+            raise AssertionError(f"the multihost cycle ({flag}) did not take the native path")
+        if len(gaps["idle_ms"]) != 5:
+            raise AssertionError(f"the trace of the multihost cycle ({flag}) has "
+                                 f"{len(gaps['idle_ms'])} step gaps, not 5")
+    on, off = runs["prefetch"]["dist"], runs["inline"]["dist"]
+    later = max(abs(a - b) for a, b in zip(on[1:], off[1:]))
+    runs["first_dist_equal"], runs["later_dist_max_diff"] = on[0] == off[0], later
+    print(f"12b prefetch on / off: cycle {runs['prefetch']['cycle_ms']:.1f} / "
+          f"{runs['inline']['cycle_ms']:.1f} ms (wall {runs['prefetch']['cycle_wall_ms']:.1f} / "
+          f"{runs['inline']['cycle_wall_ms']:.1f}); device idle between steps "
+          f"{runs['prefetch']['idle_ms_between_steps']} / "
+          f"{runs['inline']['idle_ms_between_steps']} ms; first dist equal "
+          f"{runs['first_dist_equal']}, later max |d dist| {later:.3e}", flush=True)
+    if not runs["first_dist_equal"] or later > 1e-4:
+        raise AssertionError(f"prefetch changed the batches: dist {on} vs {off}")
+    return runs
+
+
+def dcp_phase(card: str, run_dir: str) -> dict:
+    """12c. Phase 12b's ``orbax/2`` (DCP, bfloat16 slots) restored here into a
+    fresh state, equal to the npz reference of the same final state (every
+    tensor, the step and the optimizers' scalars); a resume in a new process
+    with ``--load_params`` that says it read the DCP format, starts at epoch
+    3 and takes 3 finite steps; then ``sample.py`` and ``evaluate.py``
+    (random InceptionV3 weights, 1000 samples) on the directory."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from otgan_tpu_torch import evaluate as evaluate_mod
+    from otgan_tpu_torch import sample as sample_mod
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.eval import random_weights as rw
+    from otgan_tpu_torch.utils import checkpoint as ckpt
+
+    step_dir = os.path.join(run_dir, "orbax", "2")
+    if ckpt.latest_checkpoint(run_dir) != step_dir or ckpt.checkpoint_format(step_dir) != "dcp":
+        raise AssertionError(f"phase 12b did not commit {step_dir}")
+    cfg = TrainConfig.load(os.path.join(run_dir, "config.json"))
+    engine = Engine(dataclasses.replace(cfg, data_dependent_init=False), "cuda")
+    x_init = np.zeros((8, 32, 32, 3), np.uint8)
+    restored, _ = engine.init_state(cfg.seed + 1, x_init)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ckpt.restore_checkpoint(step_dir, restored)
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    reference, _ = engine.init_state(cfg.seed + 2, x_init)
+    ckpt.restore_checkpoint(ckpt.latest_checkpoint(os.path.join(run_dir, "reference")), reference)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(ckpt._named_tensors(restored),
+                                                            ckpt._named_tensors(reference)))
+    scalars = [(getattr(o1, n1), getattr(o2, n2)) for (_, o1, n1), (_, o2, n2) in zip(
+        ckpt._opt_scalars(restored), ckpt._opt_scalars(reference))]
+    res = dict(restore_s=restore_s, step=restored.step, equal=same,
+               dir_bytes=sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in os.listdir(step_dir)))
+    del engine, restored, reference
+    torch.cuda.empty_cache()
+    if not same or res["step"] != 6 or any(a != b for a, b in scalars):
+        raise AssertionError(f"the DCP restore differs from the saved state: {res}")
+    argv = ["--preset", "train_py", "--synthetic_data", "--synthetic_size", "15000",
+            "--max_epochs", "4", "--log_every_steps", "1", "--save_every_epochs", "100",
+            "--save_dir", run_dir, "--load_params", *one_process_world()]
+    t0 = time.time()
+    out = run_group([sys.executable, "-m", "otgan_tpu_torch.train", *argv], MULTIHOST_TIMEOUT,
+                    dict(os.environ, PYTHONPATH=REPO))
+    res["resume_wall_s"] = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the DCP resume failed (rc {out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-4000:]}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    resumed = [r for r in recs if "kind" in r and r["step"] > 6]
+    res["resumed_steps"] = [{k: r[k] for k in ("step", "kind", "dist", "entropy")}
+                            for r in resumed]
+    if ("(dcp checkpoint format); resuming at epoch 3" not in out.stdout or len(resumed) != 3
+            or not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"])
+                       for r in resumed)):
+        raise AssertionError(f"the DCP resume is wrong: {res}\n{out.stdout[-2000:]}")
+    x = sample_mod.main(["--save_dir", run_dir, "--num_samples", "100"])
+    if x.shape != (100, 32, 32, 3) or not np.isfinite(x).all():
+        raise AssertionError(f"sample.py on the DCP run gave {x.shape}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcp_eval_")
+    keep_env = os.environ.get("OTGAN_INCEPTION_WEIGHTS")
+    try:
+        os.environ["OTGAN_INCEPTION_WEIGHTS"] = rw.save_npz(
+            os.path.join(tmp, "inception_random.npz"), seed=2024, variant="tf2015",
+            num_classes=1008)
+        t0 = time.time()
+        scores = evaluate_mod.main(["--save_dir", run_dir, "--num_samples", "1000",
+                                    "--splits", "10"])
+        res["evaluate_s"] = time.time() - t0
+    finally:
+        if keep_env is None:
+            os.environ.pop("OTGAN_INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["OTGAN_INCEPTION_WEIGHTS"] = keep_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["evaluate"] = scores
+    print(f"12c DCP checkpoint of the batch-5000 state on {card}: " + json.dumps(res), flush=True)
+    if scores["checkpoint"] != step_dir or not math.isfinite(scores["inception_score"]):
+        raise AssertionError(f"evaluate.py on the DCP directory: {scores}")
+    return res
+
+
+def two_hosts_phase(n_cards: int) -> dict:
+    """12d. With two or more cards: two "hosts", two torchrun agents
+    (``--nnodes 2``, c10d rendezvous on localhost), each with half the
+    cards, running ``--multihost --matching_layout rows`` at batch 5000 for
+    one 5:1 cycle, then a resume for one epoch. Each process must say
+    ``process p/2 (local batch 2500)``; the local-step kernel's launches
+    are rank 0's in ``metrics.jsonl``. On one card it says why it did not
+    run and returns ``{}``."""
+    if n_cards < 2:
+        print("12d two hosts: not run: one card is visible, and each of the two torchrun "
+              "agents needs its own card (NCCL refuses two ranks on one card)", flush=True)
+        return {}
+    k = n_cards // 2
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_two_hosts")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def both(extra) -> list:
+        port = free_port()
+        procs = []
+        for node in range(2):
+            env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=",".join(
+                str(node * k + i) for i in range(k)))
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2",
+                   "--node_rank", str(node), f"--nproc_per_node={k}", "--rdzv_backend", "c10d",
+                   "--rdzv_endpoint", f"localhost:{port}", "--rdzv_id", "chip_smoke",
+                   "-m", "otgan_tpu_torch.train", "--multihost", "--matching_layout", "rows",
+                   "--preset", "train_py", "--synthetic_data", "--synthetic_size", "10000",
+                   "--log_every_steps", "1", "--save_every_epochs", "3", "--save_dir", run_dir,
+                   *extra]
+            procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          start_new_session=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MULTIHOST_TIMEOUT)[0])
+        finally:
+            import signal
+
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.communicate()
+        for node, (p, out) in enumerate(zip(procs, outs)):
+            print(out[-3000:], flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"two hosts: agent {node} exited {p.returncode}")
+        return outs
+
+    t0 = time.time()
+    outs = both(["--max_epochs", "3"])
+    wall = time.time() - t0
+    joined = "\n".join(outs)
+    for p in range(2):
+        if f"process {p}/2 (local batch 2500)" not in joined:
+            raise AssertionError(f"no process {p}/2 (local batch 2500) line")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "kind" in r]
+    launches = [r for r in recs if "epoch" in r][-1]["launches"]
+    res = dict(cards=n_cards, ranks_per_host=k, wall_s=wall, matcher=recs[0]["matcher"],
+               launches=launches, steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")}
+                                         for r in steps])
+    if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5 or not all(
+            math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError(f"two hosts: the cycle is wrong: {res}")
+    local = {t: n for t, n in launches.items()
+             if t.startswith("local_step_") and t != "local_step_plain"}
+    if not any(local.values()) or launches["local_step_plain"] or launches["col_potential_plain"]:
+        raise AssertionError(f"two hosts: the local-step kernel did not run alone: {launches}")
+    outs = both(["--max_epochs", "4", "--load_params"])
+    if sum("resuming at epoch 3" in out for out in outs) != 2:
+        raise AssertionError("two hosts: the resume did not start at epoch 3 on both hosts")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        resumed = [r for r in map(json.loads, f) if "kind" in r and r["step"] > 6]
+    res["resumed_steps"] = [{x: r[x] for x in ("kind", "dist", "entropy")} for r in resumed]
+    print(f"12d two hosts of {k} card(s) each: " + json.dumps(res), flush=True)
+    if len(resumed) != 2 or not all(math.isfinite(r["dist"]) for r in resumed):
+        raise AssertionError(f"two hosts: the resumed epoch is wrong: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1626,6 +1981,13 @@ def main() -> int:
     evaluation = eval_phase(card, b256_dir)
     jax_resume = jax_resume_phase(card, b256_dir)
 
+    # ---- 12a-12d. several hosts: the native assembler, prefetch, DCP ----
+    torch.cuda.empty_cache()
+    native = native_phase(card)
+    multihost = prefetch_phase(card)
+    dcp = dcp_phase(card, multihost["prefetch"]["run_dir"])
+    two_hosts = two_hosts_phase(torch.cuda.device_count())
+
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
     kernels = [{
@@ -1637,8 +1999,10 @@ def main() -> int:
         "launches_from": "phase 4: the main path, one 5:1 cycle of --preset train_py at batch "
                          "5000 (in-process counters); phase 4c: launches_densenet in one 5:1 "
                          "cycle of the DenseNet at batch 5000; phase 4b: trace_device_events in "
-                         "the traced cycle",
+                         "the traced cycle; phase 12b: launches_multihost in the --multihost "
+                         "cycles with and without --host_prefetch (rank 0's metrics.jsonl)",
         "launches_densenet": dn["launches"]["grid"],
+        "launches_multihost": [multihost[k]["launches"]["grid"] for k in ("prefetch", "inline")],
         "trace_device_events": traced["grid_device_events"],
         "launches_per_step": launches["grid"] / len(steps),
         "max_abs_err": max(r["max_abs_dP"] for r in grid_held.values()),
@@ -1698,6 +2062,8 @@ def main() -> int:
             "held": {k: {n: held[k][n] for n in names if n in held[k]} for k in held},
             "path": sharded[mode],
             "multi_gpu_training": multi.get(mode),
+            "launches_two_hosts": (two_hosts["launches"][f"local_step_{mode}"] if two_hosts
+                                   else None),
         })
     own = resident["toy_b512"]  # the shape of the slice's path
     from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
@@ -1741,4 +2107,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ranks_check() if sys.argv[1:] == ["--ranks"] else main())
+    if sys.argv[1:] == ["--ranks"]:
+        sys.exit(ranks_check())
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_report(sys.argv[2:]))
+    sys.exit(main())

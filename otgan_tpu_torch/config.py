@@ -6,15 +6,17 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 ``--num_devices``; ``batch_size`` is the GLOBAL batch. ``use_pallas`` means
 "run the Sinkhorn loop in the hand-written CUDA kernel".
 
-Knobs that only steer the TPU runtime (compile caches, host prefetch, the
-fused cycle program, AOT cache) are read and have no effect here.
+Knobs that only steer the TPU runtime (compile caches, the fused cycle
+program, AOT cache) are read and have no effect here.
 :meth:`TrainConfig.model_opts` is the JAX package's: the toy reads the
 default ``crelu`` as ``relu``, every family takes ``compute_dtype``,
 ``remat`` and ``remat_policy``, and the DenseNet its block sizes.
 ``--num_devices`` K > 1 runs under ``torchrun --nproc_per_node K``, and
-``--matching_layout`` and ``--sharded_matching`` pick its matcher.
-:func:`check_supported` rejects the options whose port comes in a later
-slice, naming it.
+``--matching_layout`` and ``--sharded_matching`` pick its matcher;
+``--multihost`` shards the data over hosts (``torchrun --nnodes``, or the
+manual ``--coordinator_address``, ``--num_processes``, ``--process_id``).
+:func:`check_supported` rejects what has no port yet: a
+``--matching_precision`` other than ``highest``.
 """
 
 from __future__ import annotations
@@ -133,14 +135,12 @@ class TrainConfig:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option this slice of the port
-    does not run yet, naming the slice that brings it."""
+    """Raise ``NotImplementedError`` for an option the port does not run
+    yet, and ``ValueError`` for an unknown checkpoint backend."""
+    if cfg.checkpoint_backend not in ("npz", "orbax"):
+        raise ValueError(f"--checkpoint_backend must be npz or orbax, got "
+                         f"{cfg.checkpoint_backend!r}")
     later = []
-    if cfg.multihost:
-        later.append("--multihost (multi-host slice)")
-    if cfg.checkpoint_backend != "npz":
-        later.append("--checkpoint_backend orbax (with torch.distributed.checkpoint, "
-                     "a later checkpoint slice)")
     if cfg.matching_precision != "highest":
         later.append(
             f"--matching_precision {cfg.matching_precision} (needs a "

@@ -47,6 +47,15 @@ the MED surrogate decomposes row by row; the gradients are then summed
 over the ranks, so every rank takes the same optimizer step. The reported
 distance sums its three inner products over the ranks before dividing by
 ``2 B``. With one rank the engine is the single-device engine.
+
+Several hosts (``--multihost``, ``parallel/mesh.py``): each process is
+handed its own shard's batch, ``B / P`` rows, and its ranks keep their
+rows of it, which are their rows of the global batch (ranks are numbered
+process by process). The latents are still drawn at the global batch from
+the shared generator, each rank keeping its rows, and the data-dependent
+init runs on the processes' init batches gathered in process order; so
+the latents, the global match and the gradients are those of one process
+fed the concatenation of the processes' batches.
 """
 
 from __future__ import annotations
@@ -86,6 +95,8 @@ from otgan_tpu_torch.parallel.mesh import (
     all_gather_rows,
     all_reduce_sum,
     local_rows,
+    process_count,
+    process_index,
     rank_and_size,
     replicate,
 )
@@ -161,6 +172,12 @@ class Engine:
                 f"ranks ({self.world}): launch with torchrun --nproc_per_node "
                 f"{cfg.num_devices}"
             )
+        # the processes that hold disjoint data shards (one without --multihost)
+        self.pid, self.pcount = (process_index(), process_count()) if cfg.multihost else (0, 1)
+        if self.world % self.pcount:
+            raise ValueError(f"{self.world} ranks do not split over {self.pcount} processes")
+        self.local_world = self.world // self.pcount  # ranks of this process
+        self.local_index = self.rank % self.local_world
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None and self.world > 1:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -352,11 +369,18 @@ class Engine:
             use_pallas=cfg.use_pallas,
         )
 
-    def _local(self, t):
-        """This rank's rows of a global batch (of each tensor of a tuple)."""
+    def _local_latent(self, z):
+        """This rank's rows of global latents (of each tensor of a tuple)."""
         if self.world == 1:
-            return t
-        return map_latent(lambda x: local_rows(x, self.rank, self.world), t)
+            return z
+        return map_latent(lambda t: local_rows(t, self.rank, self.world), z)
+
+    def _local_data(self, x):
+        """This rank's rows of this process's batch (the global batch
+        without ``--multihost``)."""
+        if self.local_world == 1:
+            return x
+        return local_rows(x, self.local_index, self.local_world)
 
     def _distance(self, f_a, f_b, m: MatchedFeatures) -> torch.Tensor:
         if self.world == 1:
@@ -395,7 +419,11 @@ class Engine:
         reset_parameters(gen, cpu_rng)
         gen.to(self.device)
         disc.to(self.device)
-        x = self.ingest(x_init)
+        x = _as_tensor(x_init).to(self.device)
+        if self.pcount > 1:
+            # the processes' init batches, in process order: the global one
+            x = all_gather_rows(self._local_data(x), self.group)
+        x = self.ingest(x)
         if self.cfg.data_dependent_init and self.cfg.model != "toy_mlp":
             f = data_init(disc, x)
             z = self.family.sample_latent(x.shape[0], cpu_rng, **self.cfg.model_opts())
@@ -478,11 +506,12 @@ class Engine:
 
     # -- generator update (train.py:108-113 descent; EMA at :223) --
     def gen_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
-        """One generator step on the global batch ``x_data`` (and global
-        latents ``z``, else drawn): each rank keeps its rows."""
+        """One generator step on this process's batch ``x_data`` (the global
+        batch without ``--multihost``) and the global latents ``z``, else
+        drawn at the global batch: each rank keeps its rows."""
         with record_function("gen_step"):
-            z = self._local(self._latent(state, len(x_data), z))
-            x = self._local(x_data)
+            z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
+            x = self._local_data(x_data)
             grad_fn = self._gen_grads_accum if self.cfg.grad_accum > 1 else self._gen_grads
             grads, loss, distance, m = grad_fn(state, x, z)
             return state, self._finish(state, "gen", grads, loss, distance, m)
@@ -535,10 +564,10 @@ class Engine:
 
     # -- critic update: ascent via negative lr (train.py:115-130,143) --
     def disc_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
-        """One critic step on the global batch, as :meth:`gen_step`."""
+        """One critic step, with the batches of :meth:`gen_step`."""
         with record_function("disc_step"):
-            z = self._local(self._latent(state, len(x_data), z))
-            x = self._local(x_data)
+            z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
+            x = self._local_data(x_data)
             grad_fn = self._disc_grads_accum if self.cfg.grad_accum > 1 else self._disc_grads
             grads, loss, distance, m = grad_fn(state, x, z)
             return state, self._finish(state, "disc", grads, loss, distance, m)

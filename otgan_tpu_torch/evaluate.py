@@ -4,8 +4,8 @@ score and FID of a checkpoint.
 ``python -m otgan_tpu_torch.evaluate --save_dir D [--checkpoint P] [--ema]
 [--num_samples 50000] [--splits 10] [--fid_stats_path S | --data_dir C]
 [--device cpu]`` rebuilds the run's configuration from ``D/config.json``,
-restores the latest (or the named) checkpoint, the port's or the JAX
-package's, generates ``--num_samples`` images (``sample.generate``) and
+restores the latest (or the named) checkpoint, the port's (npz, or a DCP
+step directory ``orbax/<step>``) or the JAX package's npz, generates ``--num_samples`` images (``sample.generate``) and
 prints one JSON line: the Inception score (the reference protocol: 50 000
 samples, 10 splits, ``train.py:245-273``) and, with reference statistics
 (``--fid_stats_path``, from ``python -m otgan_tpu_torch.eval.fid``) or the

@@ -1,4 +1,4 @@
-"""Builds the CUDA sources in ``otgan_tpu_torch/csrc/`` into ctypes libraries.
+"""Builds the native sources in ``otgan_tpu_torch/csrc/`` into ctypes libraries.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``.
@@ -8,6 +8,12 @@ and an unchanged one loads from the build directory. All missing libraries
 are compiled at once, one ``nvcc`` process per source started together.
 A missing ``nvcc`` or a failed build raises; nothing degrades to another
 path. Nothing is built at import: the first caller of :func:`load` builds.
+
+The host library, ``csrc/otgan_host.cpp`` (the batch assembler), is built
+by :func:`build_host` with ``g++ -O3 -march=native -shared -fPIC -std=c++17
+-pthread`` into ``_build/libotgan_host-<hash>.so``; its hash also covers
+the host's CPU, so code built for one CPU is never loaded on another host
+that shares the directory.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -27,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+HOST_SRC = os.path.join(CSRC_DIR, "otgan_host.cpp")
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -115,3 +125,48 @@ def load(name: str) -> ctypes.CDLL:
                 raise KeyError(f"no CUDA source csrc/{name}.cu")
             _libs[name] = ctypes.CDLL(paths[name])
         return _libs[name]
+
+
+def _cpu_identity() -> bytes:
+    """What ``-march=native`` compiles for: the machine, and the first CPU's
+    model and feature flags from ``/proc/cpuinfo`` where there is one."""
+    ident = [platform.machine(), platform.processor()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block
+                if line.split(":")[0].strip() in ("vendor_id", "model name", "flags",
+                                                  "Features", "CPU part"):
+                    ident.append(line.strip())
+    except OSError:
+        pass
+    return "\n".join(ident).encode()
+
+
+def host_lib_path() -> str:
+    """``_build/libotgan_host-<hash>.so``: the hash covers the source, the
+    flags and the host's CPU."""
+    h = hashlib.sha256()
+    with open(HOST_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(_cpu_identity())
+    return os.path.join(BUILD_DIR, f"libotgan_host-{h.hexdigest()[:16]}.so")
+
+
+def build_host(force: bool = False) -> str:
+    """Compile the host library with ``g++`` unless it exists (``force``:
+    anew, into a fresh file renamed over the old one, so a later ``dlopen``
+    maps the new code). Returns its path; raises when ``g++`` is missing or
+    fails."""
+    out = host_lib_path()
+    if force or not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
+        proc = subprocess.run(["g++", *HOST_FLAGS, HOST_SRC, "-o", tmp],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ exited {proc.returncode} building {HOST_SRC}:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: no process sees half a library
+    return out

@@ -1,17 +1,25 @@
 """Process groups for data-parallel training (counterpart of
 ``otgan_tpu/parallel/mesh.py``).
 
-One process per GPU, launched by ``torchrun --nproc_per_node K``. Where the
-JAX package builds a 1-D device mesh, shards the batch along it and
-replicates the state, the port has
+One process per GPU. Where the JAX package builds a 1-D device mesh, shards
+the batch along it and replicates the state, the port has
 
-* :func:`init_from_env`: join torchrun's group (``RANK``, ``WORLD_SIZE``,
-  ``LOCAL_RANK``): NCCL on ``cuda:LOCAL_RANK``, gloo when the caller asks
-  for the CPU;
-* :func:`local_rows`, the counterpart of ``shard_batch``: every rank holds
-  the GLOBAL batch (drawn from the same seeded generators) and keeps its
-  contiguous rows ``[k B/K, (k+1) B/K)``, so a K-rank run sees the data of
-  a 1-device run;
+* :func:`init_from_env`: join the process group. Under ``torchrun``
+  (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): NCCL on ``cuda:LOCAL_RANK``,
+  gloo when the caller asks for the CPU. A manual multi-host launch (the
+  JAX flags ``--coordinator_address host:port --num_processes P
+  --process_id i``, no torchrun) joins ``tcp://host:port`` as rank ``i`` of
+  ``P``, one card a process;
+* :func:`process_index` / :func:`process_count`: the JAX package's
+  processes, which hold disjoint data shards under ``--multihost``: under
+  ``torchrun`` a node (``WORLD_SIZE / LOCAL_WORLD_SIZE`` of them, ranks
+  numbered node by node), in a manual launch each process;
+* :func:`local_rows`, the counterpart of ``shard_batch``: a rank keeps its
+  contiguous rows ``[k B/K, (k+1) B/K)`` of a batch. Under one process
+  every rank holds the GLOBAL batch (drawn from the same seeded
+  generators), so a K-rank run sees the data of a 1-device run; under
+  ``--multihost`` the ranks of a process share its batch and keep their
+  rows of it, which are their rows of the global batch;
 * :func:`replicate`: rank 0's tensors broadcast to every rank, with the
   largest difference any rank had from them before.
 
@@ -31,28 +39,69 @@ import torch.distributed as dist
 ProcessGroup = Optional[dist.ProcessGroup]  # None = the default group
 
 
-def init_from_env(device="cuda") -> torch.device:
-    """This process's device, after joining torchrun's process group when
-    ``WORLD_SIZE`` is set (a plain run has no group and keeps ``device``).
-    ``--num_devices`` is checked against the group by the engine."""
+def init_from_env(device="cuda", coordinator_address: str = "", num_processes: int = 0,
+                  process_id: int = -1) -> torch.device:
+    """This process's device, after joining the process group: torchrun's
+    when ``WORLD_SIZE`` is set, else the manual launch's when
+    ``coordinator_address`` is given (``num_processes`` ranks, this one
+    ``process_id``, on ``cuda:process_id % cards``); a plain run has no
+    group and keeps ``device``. ``--num_devices`` is checked against the
+    group by the engine."""
     kind = torch.device(device).type
-    if "WORLD_SIZE" not in os.environ:
-        return torch.device(device)
-    if kind == "cuda":
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    backend = "nccl" if kind == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if coordinator_address:
+            raise ValueError("--coordinator_address is for a launch without torchrun; under "
+                             "torchrun the group comes from its environment")
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        group_rank = os.environ.get("GROUP_RANK")
+        if world % local_world or (group_rank is not None
+                                   and rank // local_world != int(group_rank)):
+            raise ValueError(f"rank {rank} of {world} is not rank {rank % local_world} of node "
+                             f"{group_rank} ({local_world} a node): nodes must have equal "
+                             "--nproc_per_node")
         local = int(os.environ["LOCAL_RANK"])
+        init = {}
+    elif coordinator_address:
+        if num_processes < 1 or not 0 <= process_id < num_processes:
+            raise ValueError(f"a manual launch needs --num_processes P >= 1 and --process_id in "
+                             f"[0, P); got {num_processes} and {process_id}")
+        rank, world = process_id, num_processes
+        local = process_id % torch.cuda.device_count() if kind == "cuda" else 0
+        init = {"init_method": f"tcp://{coordinator_address}"}
+    else:
+        return torch.device(device)
+    dev = torch.device("cpu")
+    if kind == "cuda":
         torch.cuda.set_device(local)
         dev = torch.device("cuda", local)
-    elif kind == "cpu":
-        dev = torch.device("cpu")
-    else:
-        raise ValueError(f"unsupported device {device!r}")
     if not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if kind == "cuda" else "gloo",
-            rank=int(os.environ["RANK"]),
-            world_size=int(os.environ["WORLD_SIZE"]),
-        )
+        dist.init_process_group(backend, rank=rank, world_size=world, **init)
     return dev
+
+
+def _local_world_size() -> int:
+    """Ranks a process: torchrun's ``LOCAL_WORLD_SIZE``, else 1."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+
+
+def process_count() -> int:
+    """The run's processes in the JAX package's sense (its hosts): torchrun's
+    nodes, or the processes of a manual launch; 1 without a group."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size() // _local_world_size()
+
+
+def process_index() -> int:
+    """This process's index among :func:`process_count` (its node under
+    torchrun); 0 without a group."""
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank() // _local_world_size()
 
 
 def rank_and_size(group: ProcessGroup = None) -> Tuple[int, int]:

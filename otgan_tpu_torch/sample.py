@@ -6,7 +6,9 @@ sampling blocks (``train.py:233-243``) on its own.
 --num_samples N [--device cpu]`` rebuilds the run's configuration from
 ``D/config.json`` (the port's or the JAX package's: the fields are the
 same), restores the latest (or the named) full-state checkpoint, written by
-the port or by the JAX package (``utils/checkpoint.py`` reads both), and
+the port (an npz file, or a ``orbax/<step>`` directory of its sharded
+backend) or by the JAX package as npz (``utils/checkpoint.py`` reads them;
+the JAX package's orbax directories raise, naming themselves), and
 writes ``samples.npz`` (key ``samples``) and, for images, a
 ``samples.png`` grid of the first 100. Latents come in batches of
 ``--batch_size``, batch i drawn from a generator seeded ``--seed + i``. It

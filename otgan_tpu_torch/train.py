@@ -22,14 +22,19 @@ when the run raises; ``--debug_nans`` makes every step raise
 entropy (``engine.py``). Every ``--save_every_epochs`` epochs (not the
 first epoch of a run) it writes the full train state,
 ``otgan_state-<epoch>.npz`` (``utils/checkpoint.py``; retention, slot dtype
-and background writes from the config), and beside it ``distances.npz``,
+and background writes from the config), or under ``--checkpoint_backend
+orbax`` the step directory ``orbax/<epoch>`` written by every rank with
+``torch.distributed.checkpoint`` (``utils/checkpoint_orbax.py``), and
+beside it ``distances.npz``,
 the per-epoch mean distances of the run (an epoch without a step of one
 kind logs that kind's last mean with ``dist_*_carried``). ``--load_params``
 resumes from ``--model_name`` or the latest checkpoint in ``--save_dir`` at the epoch
 after it, and says which format it read: the port's, or the JAX package's
 ``otgan_state-<epoch>.npz`` (same name; ``utils/checkpoint.py`` tells them
-apart by their keys), so a TPU run's directory resumes here. The data
-generator starts afresh from ``--seed``, as in the JAX trainer.
+apart by their keys), so a TPU run's directory resumes here, or a DCP step
+directory; a JAX run's orbax step directory cannot be read without orbax
+and raises, naming it. The data generator starts afresh from ``--seed``,
+as in the JAX trainer.
 
 Every ``--eval_every_epochs`` epochs (not the first epoch of a run, never
 for the toy) it scores ``--inception_samples`` generated images
@@ -41,17 +46,39 @@ reference's running ``max_inception_score`` / ``max_inception_epoch``
 over both (``train.py:245-273``). The statistics come from
 ``--fid_stats_path`` (``python -m otgan_tpu_torch.eval.fid``), else from
 the training images once, cached to ``<save_dir>/fid_stats.npz``; a user's
-``--fid_stats_path`` is never written. Host prefetch comes in a later
-slice; the JAX trainer's TPU memory warnings
-(``otgan_tpu/train.py:240-280``) are not ported, their limits being a TPU's.
+``--fid_stats_path`` is never written. The JAX trainer's TPU memory
+warnings (``otgan_tpu/train.py:240-280``) are not ported, their limits
+being a TPU's.
+
+Batches are assembled by the native library (``data/native.py``; numpy on a
+host without ``g++``, as the first line says). ``--host_prefetch`` (the
+default) assembles them ahead on the loader's producer thread and places
+the next step's batch on the card from a worker thread while the current
+step runs, also across an epoch's end (:func:`_prefetch_placed`): a copy
+from pinned host memory on a side stream, which the step's stream waits
+for. ``--no_host_prefetch`` assembles and places inline.
 
 On K GPUs: ``torchrun --nproc_per_node K -m otgan_tpu_torch.train
 --num_devices K ...``, one process per GPU (NCCL; gloo with ``--device
 cpu``). Every rank reads the same global batches; only rank 0 writes
-``config.json``, ``metrics.jsonl``, samples and checkpoints, runs the eval
-events (on its replica of the state, so the scores are the single-process
-ones; the other ranks wait at the next step's collective), and prints.
-Every rank ends in a barrier, then leaves the process group.
+``config.json``, ``metrics.jsonl``, samples and npz checkpoints, runs the
+eval events (on its replica of the state, so the scores are the
+single-process ones; the other ranks wait at the next step's collective),
+and prints. Every rank ends in a barrier, then leaves the process group.
+
+Over several hosts (``--multihost``, ``otgan_tpu/train.py:51-122,
+159-345``): ``torchrun --nnodes P --node_rank p --nproc_per_node K
+--rdzv_endpoint host:port ... --multihost``, or without torchrun one
+process a card with the JAX flags ``--coordinator_address host:port
+--num_processes P --process_id p``. ``OTGAN_INIT_TIMEOUT`` seconds bound
+the group's init and the first device query (``utils/init_watchdog.py``;
+off by default). Each process (a node under torchrun) reads its own shard
+of the data, rows ``p::P``, from a generator seeded ``(seed, p)``, at the
+local batch ``B / P`` (synthetic data is drawn from a fresh ``seed``
+generator on every process, then sharded; the toy draws its own batches);
+its ranks keep their rows of it. Each process says ``process p/P (local
+batch n)``. npz checkpoints switch to the sharded backend there, which
+every rank writes; rank 0 still writes every other artifact.
 """
 
 from __future__ import annotations
@@ -61,7 +88,9 @@ import os
 import sys
 import time
 import zipfile
-from typing import Dict, List, NamedTuple, Optional
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +110,7 @@ from otgan_tpu_torch.ops import (
     sinkhorn_step_cuda,
 )
 from otgan_tpu_torch.parallel.mesh import init_from_env
+from otgan_tpu_torch.utils import checkpoint_orbax
 from otgan_tpu_torch.utils.checkpoint import (
     checkpoint_format,
     checkpoint_step,
@@ -89,6 +119,7 @@ from otgan_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     wait_for_pending_saves,
 )
+from otgan_tpu_torch.utils.init_watchdog import arm as arm_watchdog
 from otgan_tpu_torch.utils.metrics import MetricLogger
 from otgan_tpu_torch.utils.plotting import img_tile, save_tile_img
 from otgan_tpu_torch.utils.tracing import profiled, trace_path
@@ -101,13 +132,22 @@ class TrainResult(NamedTuple):
     steps: List[dict]  # one record per step: step, kind, dist, entropy, step_ms
 
 
-def make_loader(cfg: TrainConfig, rng: np.random.Generator) -> DataLoader:
-    out_dtype = "uint8" if cfg.ingest_dtype == "uint8" else "float32"
+def make_loader(cfg: TrainConfig, rng: np.random.Generator, pid: int = 0,
+                pcount: int = 1) -> DataLoader:
+    """Process ``pid`` of ``pcount``'s loader (``otgan_tpu/train.py:282-338``):
+    its shard of CIFAR-10 or of the synthetic set at the local batch
+    ``B / pcount``. The synthetic set is drawn from ``rng`` in one process,
+    else from a fresh ``seed`` generator (the same set on every process).
+    ``--ingest_dtype compute`` emits the model's compute dtype (bfloat16, or
+    float32 for anything else)."""
+    dtype = cfg.compute_dtype if cfg.ingest_dtype == "compute" else cfg.ingest_dtype
+    kw = dict(batch_size=cfg.batch_size // pcount, rng=rng, process_index=pid,
+              process_count=pcount, prefetch=2 if cfg.host_prefetch else 0,
+              out_dtype=dtype if dtype in ("uint8", "bfloat16") else "float32")
     if cfg.synthetic_data:
-        return DataLoader(cfg.data_dir, batch_size=cfg.batch_size, rng=rng,
-                          data=synthetic(rng, cfg.synthetic_size), out_dtype=out_dtype)
-    return DataLoader(cfg.data_dir, subset="train", batch_size=cfg.batch_size,
-                      rng=rng, out_dtype=out_dtype)
+        synth_rng = rng if pcount == 1 else np.random.default_rng(cfg.seed)
+        return DataLoader(cfg.data_dir, data=synthetic(synth_rng, cfg.synthetic_size), **kw)
+    return DataLoader(cfg.data_dir, subset="train", **kw)
 
 
 def _toy_epoch(rng: np.random.Generator, batch_size: int, n_batches: int = 78):
@@ -136,6 +176,122 @@ def kernel_launches() -> dict:
             "grid": sinkhorn_grid_cuda.launches["kernel"],
             "grid_plain": sinkhorn_grid_cuda.launches["plain"],
             **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()}}
+
+
+def _prefetch_placed(items: Iterable[Tuple[int, object]], place: Callable,
+                     depth: int = 1) -> Iterator[Tuple[int, object]]:
+    """Iterate ``(epoch, pending)`` items, yielding ``(epoch, place(pending))``,
+    the placement of the NEXT item running on one worker thread while the
+    caller consumes the current one (``otgan_tpu/train.py:51-102``). The
+    pull comes before the yield, so while the caller does an epoch's end
+    (metrics, samples, eval, checkpoint) the next epoch's first batch is
+    being placed. Items whose payload is ``None`` (epoch ends) pass through
+    unplaced. ``depth=0`` places inline (``--no_host_prefetch``). A worker's
+    exception is raised at the consuming ``yield``."""
+    if depth <= 0:
+        for ep, pending in items:
+            yield ep, (None if pending is None else place(pending))
+        return
+    it = iter(items)
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="host-prefetch")
+    try:
+        q: deque = deque()
+
+        def pull() -> None:
+            for ep, pending in it:
+                q.append((ep, None if pending is None else ex.submit(place, pending)))
+                return
+
+        pull()
+        while q:
+            ep, fut = q.popleft()
+            pull()  # submit the next placement before the caller blocks
+            yield ep, (None if fut is None else fut.result())
+    finally:
+        ex.shutdown(wait=True)
+        if hasattr(it, "close"):
+            it.close()
+
+
+class Placed(NamedTuple):
+    """A batch on the card, copied on a side stream; :meth:`wait` hands it
+    to the current stream."""
+
+    x: torch.Tensor
+    ready: torch.cuda.Event
+
+    def wait(self) -> torch.Tensor:
+        stream = torch.cuda.current_stream(self.x.device)
+        stream.wait_event(self.ready)
+        # the allocator must not reuse the memory before this stream is done
+        self.x.record_stream(stream)
+        return self.x
+
+
+class HostToDevice:
+    """``place`` of :func:`_prefetch_placed` on the card: a host batch is
+    copied into one of ``SLOTS`` pinned buffers, then to ``device`` on a
+    side stream. Runs on the worker thread, which must set its own device
+    (the current device is a thread's own); a buffer is refilled only after
+    its last copy finished."""
+
+    SLOTS = 3  # one batch being filled, one in flight, one the step holds
+
+    def __init__(self, device: torch.device):
+        # the worker sets this device, so it needs its index ("cuda" alone
+        # is the current device of the thread that reads it)
+        self.device = torch.device("cuda", torch.cuda.current_device()
+                                   if device.index is None else device.index)
+        self.stream = torch.cuda.Stream(self.device)
+        self.buffers: List[Optional[Tuple[torch.Tensor, torch.cuda.Event]]] = [None] * self.SLOTS
+        self.count = 0
+
+    def __call__(self, x) -> Placed:
+        torch.cuda.set_device(self.device)
+        src = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        slot = self.count % len(self.buffers)
+        self.count += 1
+        buf = None
+        if self.buffers[slot] is not None:
+            buf, done = self.buffers[slot]
+            done.synchronize()
+            if buf.shape != src.shape or buf.dtype != src.dtype:
+                buf = None
+        if buf is None:
+            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        buf.copy_(src)
+        with torch.cuda.stream(self.stream):
+            x_dev = buf.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        self.buffers[slot] = (buf, ready)
+        return Placed(x_dev, ready)
+
+
+def maybe_init_distributed(cfg: TrainConfig, device="cuda") -> torch.device:
+    """Join the run's process group (``otgan_tpu/train.py:105-122``):
+    torchrun's when its environment is set; under ``--multihost`` without
+    it, the manual launch's (``--coordinator_address``, ``--num_processes``,
+    ``--process_id``). The group's init and the first device query run
+    under the launch watchdog, ``OTGAN_INIT_TIMEOUT`` seconds (off by
+    default). Returns this process's device."""
+    watchdog = arm_watchdog(float(os.environ.get("OTGAN_INIT_TIMEOUT", "0")))
+    try:
+        manual = {}
+        if cfg.multihost and "WORLD_SIZE" not in os.environ:
+            if not cfg.coordinator_address:
+                raise ValueError(
+                    "--multihost needs torchrun's environment (torchrun --nnodes P ...) or "
+                    "the manual flags --coordinator_address host:port --num_processes P "
+                    "--process_id p")
+            manual = dict(coordinator_address=cfg.coordinator_address,
+                          num_processes=cfg.num_processes, process_id=cfg.process_id)
+        dev = init_from_env(device, **manual)
+        if dev.type == "cuda" and torch.cuda.is_available():
+            torch.cuda.get_device_name(dev)  # the first query of the card
+    finally:
+        watchdog.disarm()
+    return dev
 
 
 class _NoLogger:
@@ -262,30 +418,44 @@ def _maybe_inception_eval(cfg: TrainConfig, engine: Engine, state: TrainState, l
 
 def train(cfg: TrainConfig, device=None) -> TrainResult:
     check_eval_flags(cfg)
-    engine = Engine(cfg, device)  # rejects options of later slices first
+    engine = Engine(cfg, device)  # rejects options without a port first
     rank0 = engine.rank == 0
+    speaks = engine.local_index == 0  # prints for its process
+    pid, pcount = engine.pid, engine.pcount
+    if cfg.batch_size % pcount != 0:
+        raise ValueError(f"global batch {cfg.batch_size} must be divisible by the process "
+                         f"count {pcount}")
+    local_batch = cfg.batch_size // pcount
+    if pcount > 1 and cfg.checkpoint_backend != "orbax":
+        # npz checkpoints go through one process; the sharded backend is the
+        # several-host path
+        if speaks:
+            print("multihost run: switching checkpoint_backend npz -> orbax (per-process "
+                  "shard writes)", flush=True)
+        cfg = dataclasses.replace(cfg, checkpoint_backend="orbax")
     if rank0:
         os.makedirs(cfg.save_dir, exist_ok=True)
         cfg.save(os.path.join(cfg.save_dir, "config.json"))
-    data_rng = np.random.default_rng(cfg.seed)
+    data_rng = np.random.default_rng(cfg.seed if pcount == 1 else (cfg.seed, pid))
     is_toy = cfg.model == "toy_mlp"
+    host_path = ""
     if is_toy:
-        x_init = sample_8gaussians(data_rng, cfg.init_batch_size or cfg.batch_size)
+        x_init = sample_8gaussians(data_rng, cfg.init_batch_size or local_batch)
         n_toy = int(os.environ.get("OTGAN_TOY_EPOCH_BATCHES", "78"))
     else:
-        loader = make_loader(cfg, data_rng)
-        if loader.num_batches == 0:
-            raise ValueError(
-                f"{loader.data.shape[0]} examples make no batch of {cfg.batch_size}"
-            )
+        loader = make_loader(cfg, data_rng, pid, pcount)
+        if loader.common_num_batches == 0:
+            raise ValueError(f"{loader.data.shape[0]} examples make no batch of {local_batch}")
         x_init = loader.init_batch(cfg.init_batch_size or None)
+        host_path = "; host batches: " + ("native" if loader.native_available() else "numpy")
     state, num_features = engine.init_state(cfg.seed, x_init)
-    if rank0:
+    if speaks:
         accum = (f"; grad_accum: {cfg.grad_accum} microbatches of "
                  f"{cfg.batch_size // cfg.grad_accum}" if cfg.grad_accum > 1 else "")
+        procs = f"; process {pid}/{pcount} (local batch {local_batch})" if pcount > 1 else ""
         print(
             f"device: {engine.device} ({engine.world} rank(s)); global batch: "
-            f"{cfg.batch_size}; matcher: {engine.matcher_desc}{accum}\n"
+            f"{cfg.batch_size}; matcher: {engine.matcher_desc}{accum}{procs}{host_path}\n"
             f"model has a hidden representation with {num_features} features",
             flush=True,
         )
@@ -296,11 +466,23 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             fmt = checkpoint_format(path)
             restore_checkpoint(path, state)
             start_epoch = checkpoint_step(path) + 1
-            if rank0:
+            if speaks:
                 print(f"restored {path} ({fmt} checkpoint format); resuming at epoch "
                       f"{start_epoch}", flush=True)
-        elif rank0:
+        elif speaks:
             print("no checkpoint found; training from scratch", flush=True)
+
+    def work_items():
+        """``(epoch, host batch)`` per step, then ``(epoch, None)`` at each
+        epoch's end."""
+        for epoch in range(start_epoch, cfg.max_epochs):
+            batches = _toy_epoch(data_rng, local_batch, n_toy) if is_toy else loader.epoch()
+            for x in batches:
+                yield epoch, x
+            yield epoch, None
+
+    on_card = engine.device.type == "cuda"
+    place = HostToDevice(engine.device) if cfg.host_prefetch and on_card else (lambda x: x)
     steps: List[dict] = []
     stride = cfg.log_every_steps
     with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger, \
@@ -312,66 +494,84 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         # the reference's running max over raw and EMA scores (train.py:264-272)
         max_inception_score, max_inception_epoch = float("-inf"), -1
         eval_cache = EvalCache()
-        start_time = time.time()
-        for epoch in range(start_epoch, cfg.max_epochs):
-            begin = time.time()
-            dist_gen, dist_disc, entropies = [], [], []
-            batches = _toy_epoch(data_rng, cfg.batch_size, n_toy) if is_toy else loader.epoch()
-            for x in batches:
-                t0 = time.perf_counter()
-                is_disc = engine.is_disc_step(state.step)
-                step_fn = engine.disc_step if is_disc else engine.gen_step
-                state, met = step_fn(state, x)
-                (dist_disc if is_disc else dist_gen).append(met.dist)
-                entropies.append(met.entropy)
-                if stride and state.step % stride == 0:
-                    dist, ent = float(met.dist), float(met.entropy)  # waits
-                    rec = dict(step=state.step, kind="disc" if is_disc else "gen",
-                               dist=dist, entropy=ent,
-                               step_ms=(time.perf_counter() - t0) * 1e3)
-                    steps.append(rec)
-                    logger.log(state.step, **{k: v for k, v in rec.items() if k != "step"})
-            # an epoch with no step of a kind (short epochs under the 5:1
-            # schedule) carries that kind's last epoch mean, flagged; before
-            # the first such step the key is left out and the history holds
-            # None, which save_distances backfills (otgan_tpu/train.py:481-509)
-            vals = {}
-            for key, kind, hist in (("dist_gen", dist_gen, mean_dist_gen),
-                                    ("dist_disc", dist_disc, mean_dist_disc)):
-                if kind:
-                    vals[key] = float(torch.stack(kind).mean())
-                elif hist and hist[-1] is not None:
-                    vals[key], vals[f"{key}_carried"] = hist[-1], True
-                hist.append(vals.get(key))
-            launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
-            logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
-                       entropy=float(torch.stack(entropies).mean()), launches=launches, **vals)
-            if not rank0:
-                continue
-            # per-epoch samples, raw and EMA (train.py:233-243)
-            for prefix, ema in (("sample", False), ("ema_sample", True)):
-                save_samples(engine, state, os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
-                             seed=epoch, ema=ema)
-            # periodic inception eval (train.py:245-273)
-            if not is_toy and (epoch + 1) % cfg.eval_every_epochs == 0 and epoch != start_epoch:
-                best = _maybe_inception_eval(cfg, engine, state, logger, state.step, loader,
-                                             eval_cache)
-                if best is not None:
-                    if best > max_inception_score:
-                        max_inception_score, max_inception_epoch = best, epoch
-                    print(f"max inception score was {max_inception_score:.6f}, iter was "
-                          f"{max_inception_epoch}", flush=True)
-                    logger.log(state.step, max_inception_score=max_inception_score,
-                               max_inception_epoch=max_inception_epoch)
-            # periodic checkpoint (train.py:275-281)
-            if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
-                path = save_checkpoint(
-                    cfg.save_dir, state, epoch, slot_dtype=cfg.checkpoint_slot_dtype,
-                    async_write=cfg.async_checkpoint, max_to_keep=cfg.max_checkpoints_to_keep,
-                    keep_every_hours=cfg.keep_checkpoint_every_n_hours)
-                logger.save_distances(mean_dist_gen, mean_dist_disc)
-                print(f"saved {path}; elapsed hours {(time.time() - start_time) / 3600:.3f}; "
-                      f"total updates {state.step}", flush=True)
+        start_time = begin = time.time()
+        dist_gen, dist_disc, entropies = [], [], []
+        placed_items = _prefetch_placed(work_items(), place, depth=1 if cfg.host_prefetch else 0)
+        try:
+            for epoch, placed in placed_items:
+                if placed is not None:
+                    t0 = time.perf_counter()
+                    x = placed.wait() if isinstance(placed, Placed) else placed
+                    is_disc = engine.is_disc_step(state.step)
+                    step_fn = engine.disc_step if is_disc else engine.gen_step
+                    state, met = step_fn(state, x)
+                    (dist_disc if is_disc else dist_gen).append(met.dist)
+                    entropies.append(met.entropy)
+                    if stride and state.step % stride == 0:
+                        dist, ent = float(met.dist), float(met.entropy)  # waits
+                        rec = dict(step=state.step, kind="disc" if is_disc else "gen",
+                                   dist=dist, entropy=ent,
+                                   step_ms=(time.perf_counter() - t0) * 1e3)
+                        steps.append(rec)
+                        logger.log(state.step, **{k: v for k, v in rec.items() if k != "step"})
+                    continue
+                # ---- the epoch's end ----
+                # an epoch with no step of a kind (short epochs under the 5:1
+                # schedule) carries that kind's last epoch mean, flagged;
+                # before the first such step the key is left out and the
+                # history holds None, which save_distances backfills
+                # (otgan_tpu/train.py:481-509)
+                vals = {}
+                for key, kind, hist in (("dist_gen", dist_gen, mean_dist_gen),
+                                        ("dist_disc", dist_disc, mean_dist_disc)):
+                    if kind:
+                        vals[key] = float(torch.stack(kind).mean())
+                    elif hist and hist[-1] is not None:
+                        vals[key], vals[f"{key}_carried"] = hist[-1], True
+                    hist.append(vals.get(key))
+                launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
+                logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
+                           entropy=float(torch.stack(entropies).mean()), launches=launches,
+                           **vals)
+                if rank0:
+                    # per-epoch samples, raw and EMA (train.py:233-243)
+                    for prefix, ema in (("sample", False), ("ema_sample", True)):
+                        save_samples(engine, state,
+                                     os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
+                                     seed=epoch, ema=ema)
+                # periodic inception eval (train.py:245-273)
+                if rank0 and not is_toy and (epoch + 1) % cfg.eval_every_epochs == 0 \
+                        and epoch != start_epoch:
+                    best = _maybe_inception_eval(cfg, engine, state, logger, state.step,
+                                                 loader, eval_cache)
+                    if best is not None:
+                        if best > max_inception_score:
+                            max_inception_score, max_inception_epoch = best, epoch
+                        print(f"max inception score was {max_inception_score:.6f}, iter was "
+                              f"{max_inception_epoch}", flush=True)
+                        logger.log(state.step, max_inception_score=max_inception_score,
+                                   max_inception_epoch=max_inception_epoch)
+                # periodic checkpoint (train.py:275-281): the sharded backend
+                # on every rank, npz on rank 0
+                if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
+                    ckpt_kw = dict(slot_dtype=cfg.checkpoint_slot_dtype,
+                                   async_write=cfg.async_checkpoint,
+                                   max_to_keep=cfg.max_checkpoints_to_keep,
+                                   keep_every_hours=cfg.keep_checkpoint_every_n_hours)
+                    if cfg.checkpoint_backend == "orbax":
+                        path = checkpoint_orbax.save_checkpoint(cfg.save_dir, state, epoch,
+                                                                **ckpt_kw)
+                    elif rank0:
+                        path = save_checkpoint(cfg.save_dir, state, epoch, **ckpt_kw)
+                    if rank0:
+                        logger.save_distances(mean_dist_gen, mean_dist_disc)
+                        print(f"saved {path}; elapsed hours "
+                              f"{(time.time() - start_time) / 3600:.3f}; total updates "
+                              f"{state.step}", flush=True)
+                dist_gen, dist_disc, entropies = [], [], []
+                begin = time.time()
+        finally:
+            placed_items.close()
     if cfg.profile_dir and rank0:
         print(f"wrote {trace_path(cfg.profile_dir, engine.rank)}", flush=True)
     # every checkpoint reported as saved is on disk before train() returns
@@ -385,9 +585,10 @@ def main(argv: Optional[list] = None) -> TrainResult:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; there is no silent fallback")
     ns = parser.parse_args(raw)
+    cfg = config_from_namespace(ns, raw)
     joined = not dist.is_initialized()  # leave a caller's group alone
-    device = init_from_env(ns.device)
-    result = train(config_from_namespace(ns, raw), device)
+    device = maybe_init_distributed(cfg, ns.device)
+    result = train(cfg, device)
     if joined and dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()

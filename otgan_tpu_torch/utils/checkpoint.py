@@ -1,5 +1,6 @@
 """Full-train-state checkpoints (counterpart of
-``otgan_tpu/utils/checkpoint.py``, its npz backend).
+``otgan_tpu/utils/checkpoint.py``): the npz backend, and the dispatch to
+the sharded one (``utils/checkpoint_orbax.py``).
 
 The reference saves only trainable variables and loses the EMA shadow and
 Adam slots on resume (SURVEY.md section 5.4). Here ``otgan_state-<epoch>.npz``
@@ -28,9 +29,17 @@ bear the same name (``otgan_state-<epoch>.npz``) and hold the ``TrainState``
 leaves as ``leaf_<i>`` in pytree order (``leaf_<i>__bf16`` for bfloat16
 slots; ``otgan_tpu/utils/checkpoint.py:103-117``). The two are told apart by
 their keys (:func:`checkpoint_format`), never by the name, and a JAX file is
-read through ``convert.state_from_jax_leaves``. Orbax step directories
-(``<save_dir>/orbax/<step>``) are not read: the port's sharded checkpoints
-come with ``torch.distributed.checkpoint`` in a later slice.
+read through ``convert.state_from_jax_leaves``.
+
+Step directories ``<save_dir>/orbax/<step>`` are the sharded backend's
+(``--checkpoint_backend orbax``): the port writes them with
+``torch.distributed.checkpoint`` (DCP), and :func:`restore_checkpoint`
+reads them there once committed (``.metadata`` written). The JAX package's
+orbax step directories sit at the same paths; they cannot be read without
+orbax, so a restore of one raises, naming it. :func:`checkpoint_format`
+tells the four formats apart by their files and keys: ``"port"`` and
+``"jax"`` npz files, ``"dcp"`` and ``"orbax (JAX)"`` directories.
+:func:`latest_checkpoint` scans both backends; the highest step wins.
 """
 
 from __future__ import annotations
@@ -92,10 +101,13 @@ _writer = _Writer()
 
 
 def wait_for_pending_saves() -> None:
-    """Join the in-flight background write, if any; a failure inside it
-    (disk full, unwritable directory) is re-raised here, so a return means
-    every reported checkpoint is on disk."""
+    """Join the in-flight background writes of both backends, if any; a
+    failure inside one (disk full, unwritable directory) is re-raised here,
+    so a return means every reported checkpoint is on disk."""
+    from otgan_tpu_torch.utils import checkpoint_orbax
+
     _writer.wait()
+    checkpoint_orbax.wait_for_pending_saves()
 
 
 def _named_tensors(state) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -176,11 +188,26 @@ def save_checkpoint(
     return path
 
 
+def _step_dir_format(path: str) -> str:
+    """``"dcp"`` or ``"orbax (JAX)"`` for a step directory
+    ``<save_dir>/orbax/<step>``; raises for any other directory, and for a
+    step directory whose write did not finish."""
+    from otgan_tpu_torch.utils import checkpoint_orbax as co
+
+    step_dir = os.path.normpath(path)
+    if not (re.fullmatch(r"\d+", os.path.basename(step_dir))
+            and os.path.basename(os.path.dirname(step_dir)) == co.SUBDIR):
+        raise ValueError(f"not a checkpoint path: {path} (directories must be step "
+                         f"directories <save_dir>/{co.SUBDIR}/<step>)")
+    if co.is_committed(step_dir):
+        return "dcp"
+    if co.is_jax_orbax(step_dir):
+        return "orbax (JAX)"
+    raise ValueError(f"{path} holds no finished checkpoint: neither DCP's {co.METADATA} nor "
+                     "orbax's metadata (a write that did not finish?)")
+
+
 def _load_arrays(path: str) -> Dict[str, np.ndarray]:
-    if os.path.isdir(path):
-        raise ValueError(f"not a checkpoint path: {path} (the port reads "
-                         f"{_PREFIX}-<step>.npz files; orbax step directories are not "
-                         "ported)")
     with np.load(path, allow_pickle=False) as data:
         return {k: data[k] for k in data.files}
 
@@ -190,10 +217,12 @@ def _is_jax_format(arrays) -> bool:
 
 
 def checkpoint_format(path: str) -> str:
-    """``"jax"`` for a file of the JAX package (``leaf_<i>`` keys), else
-    ``"port"`` (named keys, ``step``, ``rng_device``)."""
+    """For a step directory ``"dcp"`` (the port's sharded backend) or
+    ``"orbax (JAX)"`` (the JAX package's, unreadable here); for a file
+    ``"jax"`` (``leaf_<i>`` keys), else ``"port"`` (named keys, ``step``,
+    ``rng_device``)."""
     if os.path.isdir(path):
-        _load_arrays(path)  # raises: orbax step directories are not read
+        return _step_dir_format(path)
     with np.load(path, allow_pickle=False) as data:
         return "jax" if _is_jax_format(data.files) else "port"
 
@@ -223,12 +252,25 @@ def _jax_leaves(arrays: Dict[str, np.ndarray], path: str) -> list:
 def restore_checkpoint(path: str, state, rng: bool = True):
     """Restore ``path`` into ``state`` (made by ``Engine.init_state`` for the
     same run configuration) in place and return it; the file may be the
-    port's or the JAX package's. Names (or the JAX leaf order) and shapes
-    are checked; bfloat16 slots are decoded. ``rng=False`` leaves the run
-    generator as it is (a sampler that draws from its own seeds, perhaps on
-    another device than the run); from a JAX file it is seeded from the JAX
-    key (``convert.seed_from_jax_key``)."""
+    port's or the JAX package's, or a step directory of the port's sharded
+    backend (every rank of the run calls this for one). Names (or the JAX
+    leaf order) and shapes are checked; bfloat16 slots are decoded.
+    ``rng=False`` leaves the run generator as it is (a sampler that draws
+    from its own seeds, perhaps on another device than the run); from a JAX
+    file it is seeded from the JAX key (``convert.seed_from_jax_key``). A
+    step directory of the JAX package's orbax backend raises."""
     wait_for_pending_saves()  # never read around an in-flight write
+    if os.path.isdir(path):
+        fmt = _step_dir_format(path)
+        if fmt != "dcp":
+            raise ValueError(
+                f"{path} is a checkpoint of the JAX package's orbax backend ({fmt} format), "
+                "which cannot be read without orbax: write it as npz with the JAX package "
+                "(--checkpoint_backend npz) and pass that otgan_state-<step>.npz, or resume "
+                "it there")
+        from otgan_tpu_torch.utils import checkpoint_orbax
+
+        return checkpoint_orbax.restore_checkpoint(path, state, rng=rng)
     arrays = _load_arrays(path)
     if _is_jax_format(arrays):
         return state_from_jax_leaves(state, _jax_leaves(arrays, path), rng=rng)
@@ -261,23 +303,35 @@ def restore_checkpoint(path: str, state, rng: bool = True):
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:
-    """The highest-step ``otgan_state-<step>.npz`` in ``save_dir``, or None
-    (replaces the reference's filename-suffix parsing, ``train.py:190-193``)."""
+    """The highest-step checkpoint in ``save_dir``, or None (replaces the
+    reference's filename-suffix parsing, ``train.py:190-193``): an
+    ``otgan_state-<step>.npz`` file or a finished step directory
+    ``orbax/<step>``, the port's (DCP) or the JAX package's (orbax, which a
+    restore then refuses, naming it). A step directory whose write did not
+    finish is passed over."""
+    from otgan_tpu_torch.utils import checkpoint_orbax as co
+
     wait_for_pending_saves()  # this process's newest file may still be renaming
     best, best_step = None, -1
     for p in glob.glob(os.path.join(save_dir, f"{_PREFIX}-*.npz")):
         m = re.search(rf"{_PREFIX}-(\d+)\.npz$", p)
         if m and int(m.group(1)) > best_step:
             best, best_step = p, int(m.group(1))
+    for p in glob.glob(os.path.join(save_dir, co.SUBDIR, "*")):
+        base = os.path.basename(p)
+        if (re.fullmatch(r"\d+", base) and int(base) > best_step
+                and (co.is_committed(p) or co.is_jax_orbax(p))):
+            best, best_step = p, int(base)
     return best
 
 
 def checkpoint_step(path: str) -> int:
-    """The step in a checkpoint's name; raises for anything else, a
-    digit-named directory included."""
+    """The step of a checkpoint: from an ``otgan_state-<step>.npz`` name or a
+    step directory ``<save_dir>/orbax/<step>``; raises for anything else,
+    another digit-named directory included."""
     if os.path.isdir(path):
-        raise ValueError(f"not a checkpoint path: {path} (directories are orbax "
-                         "checkpoints, which the port does not read)")
+        _step_dir_format(path)
+        return int(os.path.basename(os.path.normpath(path)))
     m = re.search(rf"{_PREFIX}-(\d+)\.npz$", path)
     if not m:
         raise ValueError(f"not a checkpoint path: {path}")
@@ -303,22 +357,30 @@ def _prune_committed(save_dir: str, max_to_keep: int, keep_every_hours: float) -
     for p in glob.glob(os.path.join(save_dir, f"{_PREFIX}-*.tmp.npz")):
         os.remove(p)
         deleted.append(p)
-    paths = [p for p in glob.glob(os.path.join(save_dir, f"{_PREFIX}-*.npz"))
-             if re.search(rf"{_PREFIX}-(\d+)\.npz$", p)]
-    if len(paths) <= max_to_keep:
-        return deleted
-    # "newest" is the highest STEP (the resume order); mtimes rank only the
-    # long-term anchors, since copies and restores can flatten them
-    by_step = sorted(paths, key=checkpoint_step)
-    keep = set(by_step[-max_to_keep:])
-    window = keep_every_hours * 3600.0
-    last_kept = None
-    for mtime, p in sorted((os.path.getmtime(p), p) for p in by_step):
-        if last_kept is None or mtime - last_kept >= window:
-            keep.add(p)
-            last_kept = mtime
-    for p in by_step:
-        if p not in keep:
-            os.remove(p)
-            deleted.append(p)
+    paths = {checkpoint_step(p): p for p in glob.glob(os.path.join(save_dir, f"{_PREFIX}-*.npz"))
+             if re.search(rf"{_PREFIX}-(\d+)\.npz$", p)}
+    keep = retained_steps({step: os.path.getmtime(p) for step, p in paths.items()},
+                          max_to_keep, keep_every_hours)
+    for step in sorted(set(paths) - keep):
+        os.remove(paths[step])
+        deleted.append(paths[step])
     return deleted
+
+
+def retained_steps(mtimes: Dict[int, float], max_to_keep: int,
+                   keep_every_hours: float) -> set:
+    """The steps that ``tf.train.Saver``'s retention keeps of checkpoints
+    written at ``mtimes`` (step -> seconds): the ``max_to_keep`` highest,
+    plus one long-term checkpoint per ``keep_every_hours`` window; all of
+    them while there are at most ``max_to_keep``. "Newest" is the highest
+    step (the resume order); mtimes rank only the long-term anchors, since
+    copies and restores can flatten them."""
+    if len(mtimes) <= max_to_keep:
+        return set(mtimes)
+    keep = set(sorted(mtimes)[-max_to_keep:])
+    window, last_kept = keep_every_hours * 3600.0, None
+    for mtime, step in sorted((t, s) for s, t in mtimes.items()):
+        if last_kept is None or mtime - last_kept >= window:
+            keep.add(step)
+            last_kept = mtime
+    return keep

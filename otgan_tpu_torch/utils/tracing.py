@@ -9,7 +9,8 @@ raises. The engine names its spans with ``record_function`` (``gen_step``,
 ``disc_step``; inside them ``features``, ``match``, ``loss_backward``,
 ``update``; ``microbatch`` under ``--grad_accum``). :func:`summarize` reads
 a trace back: device kernels by total time, the host time of each span,
-and the device time of the kernels launched inside each step span.
+and the device time of the kernels launched inside each step span;
+:func:`step_gaps` the card's idle time between consecutive steps.
 """
 
 from __future__ import annotations
@@ -102,3 +103,57 @@ def _phase_at(phases, starts, ts: Optional[float]) -> str:
     if i >= 0 and ts <= phases[i][1]:
         return phases[i][2]
     return "other"
+
+
+def step_gaps(path: str) -> dict:
+    """The card's idle time between consecutive steps in a trace of
+    :func:`profiled`, for each pair of consecutive step spans: ``gaps_ms``,
+    from the end of the last device kernel launched in the first to the
+    start of the first kernel launched in the second; ``idle_ms``, that gap
+    less the time any device activity ran inside it (kernels launched
+    outside the steps, such as an epoch's samples, copies, memsets, on any
+    stream); ``copy_ms``, the host-to-device copies' time inside it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    steps = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                   for e in events
+                   if e.get("cat") == "user_annotation" and e["name"] in STEP_SPANS)
+    starts = [a for a, _ in steps]
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+    first, last, busy, copies = {}, {}, [], []
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        begin, end = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        busy.append((begin, end))
+        if cat == "gpu_memcpy" and "HtoD" in e["name"]:
+            copies.append((begin, end))
+        if cat != "kernel":
+            continue
+        ts = launches.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
+        if i < 0 or ts > steps[i][1]:
+            continue  # launched outside every step
+        first[i] = min(first.get(i, begin), begin)
+        last[i] = max(last.get(i, end), end)
+    out = {"gaps_ms": [], "idle_ms": [], "copy_ms": []}
+    for i in range(len(steps) - 1):
+        if i in last and i + 1 in first:
+            a, b = last[i], first[i + 1]
+            out["gaps_ms"].append((b - a) / 1e3)
+            out["idle_ms"].append((b - a - _covered(busy, a, b)) / 1e3)
+            out["copy_ms"].append(_covered(copies, a, b) / 1e3)
+    return out
+
+
+def _covered(intervals, a: float, b: float) -> float:
+    """Length of ``[a, b]`` that the union of ``intervals`` covers."""
+    clipped = sorted((max(x, a), min(y, b)) for x, y in intervals if y > a and x < b)
+    total, reach = 0.0, a
+    for x, y in clipped:
+        if y > reach:
+            total += y - max(x, reach)
+            reach = y
+    return total

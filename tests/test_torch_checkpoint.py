@@ -219,7 +219,7 @@ def test_checkpoint_step_errors(tmp_path):
             fn(str(stray))
     assert jax_ckpt.checkpoint_step(str(orbax)) == 5
     with pytest.raises(ValueError, match="orbax"):
-        ckpt.checkpoint_step(str(orbax))  # the port does not read orbax
+        ckpt.checkpoint_step(str(orbax))  # a step directory whose write did not finish
     assert ckpt.latest_checkpoint(str(tmp_path)) is None
 
 

@@ -494,3 +494,30 @@ def test_jax_format_checkpoint_restores_on_card(cuda_device, tmp_path):
     assert fresh.step == state.step == 3
     want = torch.Generator(device=cuda_device).manual_seed(convert.seed_from_jax_key([5, 6]))
     assert torch.equal(fresh.rng.get_state(), want.get_state())
+
+
+@pytest.mark.cuda
+def test_host_to_device_places_batches_on_a_side_stream(cuda_device):
+    """The trainer's prefetch placement (``train.HostToDevice``) on a worker
+    thread: every batch arrives whole on the card (uint8 and bfloat16, more
+    batches than pinned buffers, so each buffer is refilled), and the
+    consuming stream sees it after ``wait``."""
+    import threading
+
+    from otgan_tpu_torch.train import HostToDevice
+
+    place = HostToDevice(cuda_device)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (64, 32, 32, 3)).astype(np.uint8) for _ in range(7)]
+    batches.append(torch.from_numpy(rng.standard_normal((64, 32, 32, 3)).astype(np.float32))
+                   .to(torch.bfloat16))
+    placed = []
+    worker = threading.Thread(target=lambda: placed.extend(place(b) for b in batches))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and len(placed) == len(batches)
+    for host, p in zip(batches, placed):
+        x = p.wait()
+        assert x.is_cuda and x.device.index == torch.cuda.current_device()
+        want = torch.from_numpy(host) if isinstance(host, np.ndarray) else host
+        assert torch.equal(x.cpu(), want)

@@ -174,8 +174,7 @@ def test_config_surface_matches_jax():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(multihost=True), dict(checkpoint_backend="orbax"), dict(matching_precision="default"),
-     dict(matching_precision="high")],
+    [dict(matching_precision="default"), dict(matching_precision="high")],
 )
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -185,7 +184,8 @@ def test_later_slices_raise(kw):
 @pytest.mark.parametrize(
     "kw",
     [dict(model="densenet"), dict(profile_dir="/tmp/trace"), dict(remat=True),
-     dict(grad_accum=2), dict(debug_nans=True), dict(eval_fid=True)],
+     dict(grad_accum=2), dict(debug_nans=True), dict(eval_fid=True), dict(multihost=True),
+     dict(checkpoint_backend="orbax")],
 )
 def test_ported_options_pass_check_supported(kw):
     port_config.check_supported(port_config.TrainConfig(**kw))

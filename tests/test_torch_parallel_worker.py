@@ -210,3 +210,82 @@ def engine_grads(rank, size, cfg, x_init, x, z, kind):
     state, met = step(state, x, z)
     return dict(dist=float(met.dist), entropy=float(met.entropy),
                 grads=captured if rank == 0 else None)
+
+
+def perturb_state(state, seed: int):
+    """Move every tensor of a train state to seeded random values (a tensor
+    read in the wrong place cannot then pass) and set the step and the
+    optimizers' scalars, the same on every rank."""
+    from otgan_tpu_torch.utils.checkpoint import _named_tensors, _opt_scalars
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _, t in _named_tensors(state):
+            t.normal_(generator=gen)
+    for i, (_, opt, name) in enumerate(_opt_scalars(state)):
+        setattr(opt, name, 3.0 + i)
+    state.step = 11
+    state.rng.manual_seed(seed)
+    return state
+
+
+def named_arrays(state) -> dict:
+    """Every tensor and scalar of a train state as numpy, by key."""
+    from otgan_tpu_torch.utils.checkpoint import _named_tensors, _opt_scalars
+
+    out = {k: t.detach().float().cpu().numpy().copy() for k, t in _named_tensors(state)}
+    out.update({k: getattr(opt, name) for k, opt, name in _opt_scalars(state)})
+    out["step"] = state.step
+    out["rng"] = state.rng.get_state().numpy().copy()
+    return out
+
+
+def dcp_save(rank, size, cfg, x_init, save_dir, step, seed):
+    """Every rank makes the same state and writes it with the sharded
+    backend; rank 0 returns its arrays."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils import checkpoint_orbax
+
+    eng = Engine(TrainConfig(**cfg), device="cpu")
+    state = perturb_state(eng.init_state(0, x_init)[0], seed)
+    checkpoint_orbax.save_checkpoint(save_dir, state, step, async_write=True)
+    checkpoint_orbax.wait_for_pending_saves()
+    return named_arrays(state) if rank == 0 else None
+
+
+def dcp_restore(rank, size, cfg, x_init, path):
+    """Every rank restores ``path`` into a fresh state; returns its arrays."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    eng = Engine(TrainConfig(**cfg), device="cpu")
+    state = eng.init_state(1, x_init)[0]
+    restore_checkpoint(path, state)
+    return named_arrays(state)
+
+
+def multihost_engine_steps(rank, size, cfg, x_init, xs, ranks_per_process):
+    """Steps of a ``--multihost`` engine whose processes are nodes of
+    ``ranks_per_process`` ranks (torchrun's ``LOCAL_WORLD_SIZE``): each rank
+    is handed its process's rows of the init batch and of every batch; the
+    steps' dist and entropy."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(ranks_per_process)
+    try:
+        eng = Engine(TrainConfig(**cfg, multihost=True), device="cpu")
+        pid, pcount = rank // ranks_per_process, size // ranks_per_process
+        if (eng.pid, eng.pcount, eng.local_world) != (pid, pcount, ranks_per_process):
+            raise RuntimeError(f"processes {eng.pid}/{eng.pcount} of {eng.local_world} ranks")
+        state = eng.init_state(0, np.array_split(x_init, pcount)[pid])[0]
+        out = []
+        for x in xs:
+            step = eng.disc_step if eng.is_disc_step(state.step) else eng.gen_step
+            state, met = step(state, np.array_split(x, pcount)[pid])
+            out.append((float(met.dist), float(met.entropy)))
+        return out
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
