@@ -23,20 +23,26 @@ Run from the root of a checkout, it
    path, its plain version and its bound;
 4. drives the single-GPU path, ``otgan_tpu_torch.train --preset train_py
    --synthetic_data --synthetic_size 10000`` for one 5:1 cycle (6 steps of
-   global batch 5000, bf16 model compute), with every launch counter set
+   global batch 5000, bf16 model compute; its epochs of 2 batches are
+   leftovers of a cycle: under the default ``--fused_cycle`` the first runs
+   eagerly, the next is captured and replayed, the third replayed), with
+   every launch counter set
    to 0 just before and read just after: the grid kernel must have
    launched once a step and nothing else, no plain version;
-4b. runs the same cycle again with ``--profile_dir`` and ``--debug_nans``,
-   as its own process: it exits 0, its Chrome trace holds 6 device events of the
+4b. runs the same cycle again with ``--profile_dir``, ``--debug_nans`` and
+   ``--no_fused_cycle`` (the spans of a step vanish inside a graph's
+   replay), as its own process: it exits 0, its Chrome trace holds 6 device events of the
    grid kernel and every step and phase span (a trace with no device event
    is taken again, at most three times); prints the ten device kernels
    with the most time and the device time of the kernels launched in each
    phase span (``features``, ``match``, ``loss_backward``, ``update``);
 4c. drives the DenseNet path, ``--preset train_py --model densenet
-   --grad_accum 4`` (16 layers a block, 16 filters, features d 7296;
-   microbatches of 1250, from ``measure_densenet.py``'s table) for one 5:1
-   cycle at batch 5000, counters zeroed just before: 6 grid launches and
-   nothing else, finite dist and entropy, the peak memory printed; then one
+   --grad_accum 4 --no_fused_cycle`` (16 layers a block, 16 filters,
+   features d 7296; microbatches of 1250, from ``measure_densenet.py``'s
+   table; unfused, as the README advises at this batch: see
+   ``measure_fused.py``) for one 5:1 cycle at batch 5000, counters zeroed
+   just before: 6 grid launches and nothing else, finite dist and entropy,
+   the peak memory allocated and reserved printed; then one
    microbatch's gradients of the generator and critic under ``--remat``
    and under ``--remat_policy gen_u1,gen_u2,disc_d2,disc_d3`` against the
    plain models' (float32, cuDNN deterministic): max relative difference
@@ -129,8 +135,10 @@ Run from the root of a checkout, it
    --multihost`` (a world of one process through the manual flags
    ``--coordinator_address --num_processes 1 --process_id 0``, NCCL) with
    ``--host_prefetch`` and with ``--no_host_prefetch``, each its own
-   process (``chip_smoke.py --train``) under ``--profile_dir`` and
-   ``--checkpoint_backend orbax --checkpoint_slot_dtype bfloat16``: prints
+   process (``chip_smoke.py --train``) under ``--profile_dir``,
+   ``--no_fused_cycle`` (the gaps are read between step spans, which a
+   graph's replay does not have) and ``--checkpoint_backend orbax
+   --checkpoint_slot_dtype bfloat16``: prints
    cycle ms, img/s, peak memory and the device-idle ms between consecutive
    steps from the trace (``utils/tracing.py::step_gaps``); each run must
    launch the grid kernel 6 times and no plain version, take the native
@@ -149,13 +157,39 @@ Run from the root of a checkout, it
    a resume: each process says ``process p/2 (local batch 2500)`` and the
    local-step kernel's launches come from this run; on one card it says
    why it did not run;
+13a. (13a-13c run before 11) ``match_two_batch`` at batch 5000 (d 32768,
+   lam 500, the grid tier) under ``--matching_precision highest``, ``high``
+   (3xTF32) and ``default`` (one TF32 pass): ms per match, and the matched
+   features', ``dist``'s and entropy's deltas against ``highest`` and
+   against the match on float64 costs; ``high``'s features must be within
+   1e-5 of ``highest``'s (DESIGN.md section 7) and TF32 off after every
+   match; one split's ms and one cost product's ms and error against
+   float64 at each precision; then one train_py cycle under ``high``
+   (6 grid launches, nothing else);
+13b. the trainer with ``--fused_cycle`` (a CUDA graph a cycle) and with
+   ``--no_fused_cycle``, each in this process: the toy (2 epochs of 8
+   batches, 1:1), the DCGAN at batch 256 (3 epochs of one 5:1 cycle) and
+   train_py at batch 5000 (4 epochs of 10 batches, as on CIFAR-10: six
+   schedules, full cycles and leftovers of 4): every step's dist and
+   entropy equal bit for bit (at most 1e-6 relative would be reported, and
+   fail above), the same launches both ways (16 resident; 18 resident; 40
+   grid), the peak memory allocated and reserved both ways; then each of
+   the three through the engine: eager cycles against replays, each read
+   back once at its end (ms a step, like for like), latents drawn inside
+   the graph that differ between two replays, and a profiled replay with
+   one device event a step of its kernel (resident; resident; grid);
+13c. ``ops/energy.py`` at (2500, 32768) against the same call on the CPU
+   (the residuals bit for bit, the loss within 1e-5 relative), then
+   ``python -m otgan_tpu_torch.examples.toy_baselines`` for 20 steps of
+   each objective: finite weights, ``med_gan`` 40 resident launches
+   (2 a step) and the others none;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
    same work on this card and, as ``sfu_floor_ms``, its expf alone at the
    special-function units' peak; every number printed stands after the
    card's ``nvidia-smi`` name and power limit, the first line;
-13. prints ``{"ok": true, "device": {...}}`` as its last line.
+14. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without CUDA it exits 1 at once.
@@ -163,6 +197,7 @@ Without CUDA it exits 1 at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1227,7 +1262,7 @@ def trace_phase(card: str) -> dict:
             [sys.executable, "-m", "otgan_tpu_torch.train", "--preset", "train_py",
              "--synthetic_data", "--synthetic_size", "10000", "--max_epochs", "3",
              "--log_every_steps", "1", "--save_dir", run_dir, "--profile_dir", trace_dir,
-             "--debug_nans"], cwd=REPO, capture_output=True, text=True, timeout=600)
+             "--debug_nans", "--no_fused_cycle"], cwd=REPO, capture_output=True, text=True, timeout=600)
         if out.returncode != 0:
             raise AssertionError(f"the traced cycle failed (rc {out.returncode}):\n"
                                  f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
@@ -1355,15 +1390,19 @@ def dcgan_remat_step_check(card: str, batch: int = 256) -> dict:
 
 def densenet_phase(card: str) -> dict:
     """One 5:1 cycle of ``--preset train_py --model densenet --grad_accum
-    DENSENET_ACCUM`` at batch 5000 (the grid tier at 6 x 2500^2, features d
-    7296), counters zeroed just before and read just after; then
-    :func:`densenet_remat_check` and :func:`dcgan_remat_step_check`."""
+    DENSENET_ACCUM --no_fused_cycle`` at batch 5000 (the grid tier at 6 x
+    2500^2, features d 7296), counters zeroed just before and read just
+    after; then :func:`densenet_remat_check` and
+    :func:`dcgan_remat_step_check`. The DenseNet at batch 5000 runs unfused:
+    fused, its graphs fit a fresh process with little to spare and ran out
+    of memory beside a few GB held by earlier work (``measure_fused.py``)."""
     import torch
     from otgan_tpu_torch import train as train_mod
     from otgan_tpu_torch.models import densenet
 
     run_dir = os.path.join(REPO, "runs", "chip_smoke_densenet")
     shutil.rmtree(run_dir, ignore_errors=True)
+    gc.collect()  # an earlier engine's graphs, and their pool, must be gone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
@@ -1371,11 +1410,12 @@ def densenet_phase(card: str) -> dict:
     result = train_mod.main(["--preset", "train_py", "--model", "densenet", "--synthetic_data",
                              "--synthetic_size", "10000", "--grad_accum", str(DENSENET_ACCUM),
                              "--init_batch_size", "500", "--max_epochs", "3",
-                             "--log_every_steps", "1", "--save_dir", run_dir])
+                             "--log_every_steps", "1", "--no_fused_cycle", "--save_dir", run_dir])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = train_mod.kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     steps = result.steps
     cycle_ms = sum(r["step_ms"] for r in steps)
     for rec in steps:
@@ -1383,7 +1423,8 @@ def densenet_phase(card: str) -> dict:
               f"{rec['entropy']:.6f} {rec['step_ms']:.1f} ms/step", flush=True)
     print(f"DenseNet path (batch {BATCH}, --grad_accum {DENSENET_ACCUM}): {len(steps)} steps in "
           f"{wall:.1f} s (init included); cycle {cycle_ms:.1f} ms ({BATCH * len(steps) / cycle_ms * 1e3:.0f}"
-          f" img/s); launches {launches}; peak memory {peak_gb:.2f} GB on {card}", flush=True)
+          f" img/s); launches {launches}; peak memory {peak_gb:.2f} GB allocated, "
+          f"{peak_reserved_gb:.2f} GB reserved on {card}", flush=True)
     if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
         raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
@@ -1397,6 +1438,7 @@ def densenet_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, steps_ms=[r["step_ms"] for r in steps], cycle_ms=cycle_ms,
                 img_per_s=BATCH * len(steps) / cycle_ms * 1e3, wall_s=wall, peak_gb=peak_gb,
+                peak_reserved_gb=peak_reserved_gb,
                 grad_accum=DENSENET_ACCUM, remat_max_rel_diff=densenet_remat_check(card),
                 dcgan_remat_max_rel_diff=dcgan_remat_step_check(card))
 
@@ -1495,7 +1537,8 @@ def prefetch_phase(card: str) -> dict:
     """12b. One 5:1 cycle of ``--preset train_py --synthetic_data
     --multihost`` (a world of one process through the manual flags) with
     ``--host_prefetch`` and with ``--no_host_prefetch``, each its own
-    process under ``--profile_dir``, writing ``orbax/2`` with
+    process under ``--profile_dir`` and ``--no_fused_cycle`` (the gaps are
+    read between step spans), writing ``orbax/2`` with
     ``--checkpoint_backend orbax --checkpoint_slot_dtype bfloat16``: cycle
     ms, img/s, peak memory, the device-idle ms between consecutive steps
     from the trace, 6 grid launches and no plain one; the two runs see the
@@ -1510,7 +1553,7 @@ def prefetch_phase(card: str) -> dict:
                 "--max_epochs", "3", "--log_every_steps", "1", "--save_every_epochs", "3",
                 "--checkpoint_backend", "orbax", "--checkpoint_slot_dtype", "bfloat16",
                 "--save_dir", run_dir, "--profile_dir", os.path.join(run_dir, "trace"), flag,
-                *one_process_world()]
+                "--no_fused_cycle", *one_process_world()]
         rep = train_process(argv, f"the multihost cycle ({flag})")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -1725,6 +1768,281 @@ def two_hosts_phase(n_cards: int) -> dict:
     print(f"12d two hosts of {k} card(s) each: " + json.dumps(res), flush=True)
     if len(resumed) != 2 or not all(math.isfinite(r["dist"]) for r in resumed):
         raise AssertionError(f"two hosts: the resumed epoch is wrong: {res}")
+    return res
+
+
+# ---- 13. the last modules: matching precision, the fused cycle, the research layer ----
+PRECISION_BAND = 1e-5  # DESIGN.md section 7: high against highest (the TPU's bf16_3x read 9.6e-7)
+FUSED_REL = 1e-6  # the one allowed miss of bitwise: a library call that picks another algorithm
+
+
+def precision_phase(card: str) -> dict:
+    """13a. ``match_two_batch`` at batch 5000 (d 32768, lam 500, the grid
+    tier) under ``--matching_precision highest``, ``high`` (3xTF32) and
+    ``default`` (one TF32 pass): ms per match, and the matched features',
+    ``dist``'s and entropy's deltas against ``highest`` and against the
+    match on float64 costs; ``high`` must be within PRECISION_BAND of
+    ``highest``, and TF32 must be off again after every match. Then one
+    train_py cycle under ``--matching_precision high``."""
+    import torch
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.ops import costs
+    from otgan_tpu_torch.ops.matching import calc_distance, match_two_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fa, fb = unit_features(gen, BATCH, 32768), unit_features(gen, BATCH, 32768)
+
+    def cost64(a, b):
+        return (1.0 - a.double() @ b.double().T).float()
+
+    def run(precision=None, cost_fn=None):
+        kw = {"cost_fn": cost_fn} if cost_fn else {"precision": precision}
+        m = match_two_batch(fa, fb, LAM, ITERS, use_pallas=True, **kw)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError(f"TF32 left on after a {precision or 'float64-cost'} match")
+        return m, calc_distance(fa, fb, m)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {"highest": run("highest"), "float64_costs": run(cost_fn=cost64)}
+    res = {}
+    for p in ("highest", "high", "default"):
+        m, dist = run(p)
+        row = {"ms": cuda_ms(lambda: match_two_batch(fa, fb, LAM, ITERS, use_pallas=True,
+                                                     precision=p), reps=3)}
+        for against, (m0, d0) in ref.items():
+            row[f"features_vs_{against}"] = max(float((a - b).abs().max())
+                                                for a, b in zip(m[:4], m0[:4]))
+            row[f"dist_vs_{against}"] = abs(float(dist) - float(d0))
+            row[f"entropy_vs_{against}"] = abs(float(m.entropy) - float(m0.entropy))
+        res[p] = row
+    res["tf32_off_after"] = not torch.backends.cuda.matmul.allow_tf32
+    # where high's time and error come from: one split of a (2500, 32768)
+    # half, one product of two halves per precision, and each cost
+    # matrix's error against float64 (the matched features' error follows)
+    half_a, half_b = fa[:BATCH // 2], fb[:BATCH // 2]
+    exact = 1.0 - half_a.double() @ half_b.double().T
+    res["split_ms"] = cuda_ms(lambda: costs.tf32_split(half_a), reps=5)
+    res["high_k_chunk"] = costs.HIGH_K_CHUNK
+    for p in ("highest", "high", "default"):  # one cost matrix, operands split per call
+        res[p]["cost_matmul_ms"] = cuda_ms(lambda: costs.cosine_cost(half_a, half_b, p), reps=5)
+        res[p]["cost_vs_float64"] = float(
+            (costs.cosine_cost(half_a, half_b, p).double() - exact).abs().max())
+    del fa, fb, ref, half_a, half_b, exact
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_high")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_all_counts()
+    result = train_mod.main(["--preset", "train_py", "--synthetic_data", "--synthetic_size",
+                             "10000", "--max_epochs", "3", "--log_every_steps", "1",
+                             "--matching_precision", "high", "--save_dir", run_dir])
+    steps = result.steps
+    res["train_py_high"] = {"steps_ms": [r["step_ms"] for r in steps],
+                            "cycle_ms": sum(r["step_ms"] for r in steps),
+                            "launches": train_mod.kernel_launches()}
+    if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
+        raise AssertionError("non-finite dist or entropy under --matching_precision high")
+    check_tier_path(res["train_py_high"]["launches"], "grid", "the train_py cycle under high",
+                    want=len(steps))
+    del result
+    torch.cuda.empty_cache()
+    print(f"13a matching precision at batch {BATCH}, d 32768 on {card}: " + json.dumps(res),
+          flush=True)
+    if not res["high"]["features_vs_highest"] <= PRECISION_BAND:
+        raise AssertionError(f"high misses the {PRECISION_BAND} band: {res['high']}")
+    return res
+
+
+def fused_run(argv, fused: bool) -> dict:
+    """One trainer run in this process, fused or not: its steps, step ms,
+    peak memory and launches."""
+    import torch
+    from otgan_tpu_torch import train as train_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.time()
+    result = train_mod.main(argv + ([] if fused else ["--no_fused_cycle"]))
+    torch.cuda.synchronize()
+    out = {"wall_s": time.time() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "launches": train_mod.kernel_launches(),
+           "steps": [(r["kind"], r["dist"], r["entropy"], r["step_ms"]) for r in result.steps]}
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_compare(label: str, argv, period: int, tier: str, card: str) -> dict:
+    """13b for one configuration: unfused, then fused; per-step dist and
+    entropy equal bit for bit (else within FUSED_REL, reported), the same
+    launches, and each run's peak memory (allocated and reserved). The
+    trainer's ``step_ms`` reads back once a cycle fused and once a step
+    unfused, so its means are reported, not compared: the like-for-like
+    times are :func:`replay_check`'s."""
+    runs = {"unfused": fused_run(argv, False), "fused": fused_run(argv, True)}
+    a, b = runs["unfused"]["steps"], runs["fused"]["steps"]
+    if [s[0] for s in a] != [s[0] for s in b] or len(a) < 3 * period:
+        raise AssertionError(f"{label}: schedules differ or too few steps: {len(a)} / {len(b)}")
+    worst = max(abs(x - y) / max(abs(x), 1e-30) for s, t in zip(a, b) for x, y in
+                ((s[1], t[1]), (s[2], t[2])))
+    res = {"steps": len(a), "bitwise_equal": worst == 0.0, "max_rel_diff": worst,
+           "launches": {k: {t: n for t, n in r["launches"].items() if n}
+                        for k, r in runs.items()}}
+    for k, r in runs.items():
+        later = [s[3] for s in r["steps"][period:]]
+        res[f"{k}_trainer_step_ms"] = sum(later) / len(later)
+        res[f"{k}_peak_gb"] = r["peak_gb"]
+        res[f"{k}_peak_reserved_gb"] = r["peak_reserved_gb"]
+        res[f"{k}_wall_s"] = r["wall_s"]
+    print(f"13b {label}, fused against unfused on {card}: " + json.dumps(res), flush=True)
+    if worst > FUSED_REL:
+        raise AssertionError(f"{label}: fused per-step dist/entropy differ by {worst:.3e}")
+    if runs["unfused"]["launches"] != runs["fused"]["launches"]:
+        raise AssertionError(f"{label}: launches differ: {res['launches']}")
+    check_tier_path(runs["fused"]["launches"], tier, f"{label} fused", want=len(b))
+    return res
+
+
+def replay_check(card: str, label: str, cfg, batch_fn, kernel: str, reps: int) -> dict:
+    """13b, through the engine: the eager warm-up cycle, ``reps`` eager
+    cycles and ``reps`` replays of the captured cycle, each read back once
+    at its end (ms a step both ways, the like-for-like comparison); the
+    latents drawn in the graph differ between two replays, and a profiled
+    replay shows one device event of ``kernel`` a step."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from otgan_tpu_torch.engine import Engine
+
+    eng = Engine(cfg, "cuda")
+    rng = np.random.default_rng(0)
+    period = cfg.nr_gen_per_disc + 1
+    xs = [batch_fn(rng) for _ in range(period)]
+    state, _ = eng.init_state(1, xs[0])
+    drawn, latents = [], eng.latents
+
+    def spy(batch, generator=None):
+        z = latents(batch, generator)
+        drawn.append(z.clone())  # under capture, the clone is the graph's
+        return z
+
+    cycle = [torch.from_numpy(x).cuda() for x in xs]
+    state, _ = eng.cycle_step(state, cycle)  # the eager warm-up
+    times = {"eager": [], "replay": []}
+    for way, run in (("eager", eng.cycle), ("replay", eng.cycle_step)):
+        if way == "replay":
+            eng.latents = spy
+            state, _ = run(state, cycle)  # the capture, then its first replay
+            first = [z.clone() for z in drawn]
+            state, _ = run(state, cycle)
+            if any(torch.equal(a, b) for a, b in zip(first, drawn)):
+                raise AssertionError(f"{label}: a replay drew the previous replay's latents")
+            del eng.latents  # the spy out, and with it the cycle spy -> eng
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            state, mets = run(state, cycle)
+            float(mets[-1].dist)
+            times[way].append((time.perf_counter() - t0) * 1e3 / period)
+    names = device_kernels(lambda: eng.cycle_step(state, cycle))
+    events = [n for n in names if kernel in n]
+    res = {"eager_ms_per_step": statistics.median(times["eager"]),
+           "replay_ms_per_step": statistics.median(times["replay"]), "cycles_timed": reps,
+           "device_kernels_in_replay": len(names), f"{kernel}_device_events": len(events),
+           "latents_advance": True, "graphs": len(eng._graphs)}
+    print(f"13b one cycle of {label} through the engine on {card}: " + json.dumps(res),
+          flush=True)
+    if len(events) != period:
+        raise AssertionError(f"{label}: a profiled replay shows {len(events)} {kernel} events: "
+                             f"{sorted(set(names))[:20]}")
+    return res  # the engine, its graphs and their pool go with this frame
+
+
+def fused_phase(card: str) -> dict:
+    """13b. The trainer with and without ``--fused_cycle``: the toy (2
+    epochs of TOY_EPOCH_BATCHES, 1:1), the DCGAN at batch 256 (three epochs
+    of one 5:1 cycle) and train_py at batch 5000 (four epochs of 10
+    batches: the eager warm-up, then the graphs of six schedules, full
+    cycles and leftovers of 4, in one pool); then :func:`replay_check` for
+    each of the three."""
+    import numpy as np
+    import torch
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.data.toy import sample_8gaussians
+
+    toy_dir = os.path.join(REPO, "runs", "chip_smoke_fused_toy")
+    os.environ["OTGAN_TOY_EPOCH_BATCHES"] = str(TOY_EPOCH_BATCHES)
+    try:
+        toy = fused_compare("toy", [
+            "--model", "toy_mlp", "--batch_size", "512", "--sinkhorn_lambda", "50",
+            "--nr_sinkhorn_iter", "10", "--nr_gen_per_disc", "1", "--max_epochs", "2",
+            "--save_every_epochs", "100", "--log_every_steps", "1", "--save_dir", toy_dir],
+            2, "resident", card)
+    finally:
+        del os.environ["OTGAN_TOY_EPOCH_BATCHES"]
+    b256 = fused_compare("DCGAN batch 256", [
+        "--synthetic_data", "--synthetic_size", "1536", "--max_epochs", "3",
+        "--save_every_epochs", "100", "--log_every_steps", "1",
+        "--save_dir", os.path.join(REPO, "runs", "chip_smoke_fused_b256")], 6, "resident", card)
+    b5000 = fused_compare("train_py batch 5000", [
+        "--preset", "train_py", "--synthetic_data", "--synthetic_size", "50000",
+        "--max_epochs", "4", "--save_every_epochs", "100", "--log_every_steps", "1",
+        "--save_dir", os.path.join(REPO, "runs", "chip_smoke_fused_b5000")], 6, "grid", card)
+
+    def images(batch):
+        return lambda rng: rng.integers(0, 256, (batch, 32, 32, 3), dtype=np.uint8)
+
+    def released(res):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    replays = {
+        "toy": released(replay_check(card, "the toy", TrainConfig(
+            model="toy_mlp", batch_size=512, sinkhorn_lambda=50.0, nr_sinkhorn_iter=10,
+            nr_gen_per_disc=1), lambda rng: sample_8gaussians(rng, 512), "resident", 20)),
+        "b256": released(replay_check(card, "the DCGAN at batch 256", TrainConfig(batch_size=256),
+                                      images(256), "resident", 5)),
+        "b5000": released(replay_check(card, "train_py at batch 5000", TrainConfig(
+            batch_size=5000, nr_gen_per_disc=5), images(5000), "grid_sinkhorn", 2)),
+    }
+    return {"toy": toy, "b256": b256, "b5000": b5000, "replay": replays}
+
+
+def research_phase(card: str) -> dict:
+    """13c. ``ops/energy.py`` at (2500, 32768) on the card against the same
+    call on the CPU (the residuals bit for bit, the loss to float32's
+    reduction order), and ``examples/toy_baselines.py`` for 20 steps of each
+    objective (finite; ``med_gan`` launches the resident kernel, 2 a step)."""
+    import torch
+    from otgan_tpu_torch.examples import toy_baselines
+    from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
+    from otgan_tpu_torch.ops.energy import energy_distance
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fs = torch.randn((2500, 32768), generator=gen, device="cuda")
+    fd = torch.randn((2500, 32768), generator=gen, device="cuda")
+    loss, grads = energy_distance(fs, fd)
+    loss_c, grads_c = energy_distance(fs.cpu(), fd.cpu())
+    res = {"energy": {"ms": cuda_ms(lambda: energy_distance(fs, fd), reps=3),
+                      "grads_equal": bool(torch.equal(grads.cpu(), grads_c)),
+                      "loss_rel_diff": abs(float(loss) - float(loss_c)) / float(loss_c)}}
+    del fs, fd, grads, grads_c
+    if not res["energy"]["grads_equal"] or res["energy"]["loss_rel_diff"] > 1e-5:
+        raise AssertionError(f"energy_distance on the card differs from the CPU: {res}")
+    for model in toy_baselines.MODELS:
+        reset_all_counts()
+        t0 = time.time()
+        gp, dp = toy_baselines.main(["--model", model, "--steps", "20", "--save_dir",
+                                     os.path.join(REPO, "runs", "chip_smoke_baselines")])
+        finite = all(bool(torch.isfinite(t).all()) for p in gp + dp for t in p.values())
+        res[model] = {"s": time.time() - t0, "finite": finite,
+                      "resident": rc.launches["kernel"]}
+        if not finite or rc.launches["kernel"] != (40 if model == "med_gan" else 0):
+            raise AssertionError(f"toy_baselines --model {model}: {res[model]}")
+    print(f"13c the research layer on {card}: " + json.dumps(res), flush=True)
     return res
 
 
@@ -1988,6 +2306,11 @@ def main() -> int:
     dcp = dcp_phase(card, multihost["prefetch"]["run_dir"])
     two_hosts = two_hosts_phase(torch.cuda.device_count())
 
+    # ---- 13a-13c. matching precision, the fused cycle, the research layer ----
+    precision = precision_phase(card)
+    fused = fused_phase(card)
+    research = research_phase(card)
+
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
     kernels = [{
@@ -1997,10 +2320,16 @@ def main() -> int:
         "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
         "launches": launches["grid"],
         "launches_from": "phase 4: the main path, one 5:1 cycle of --preset train_py at batch "
-                         "5000 (in-process counters); phase 4c: launches_densenet in one 5:1 "
-                         "cycle of the DenseNet at batch 5000; phase 4b: trace_device_events in "
-                         "the traced cycle; phase 12b: launches_multihost in the --multihost "
-                         "cycles with and without --host_prefetch (rank 0's metrics.jsonl)",
+                         "5000 in epochs of 2 batches (in-process counters); phase 4c: "
+                         "launches_densenet in one 5:1 cycle of the DenseNet at batch 5000, "
+                         "unfused; phase 4b: trace_device_events in the traced cycle; phase "
+                         "12b: launches_multihost in the --multihost cycles with and without "
+                         "--host_prefetch (rank 0's metrics.jsonl); phase 13b: "
+                         "launches_fused_b5000 in 4 epochs of 10 batches of train_py, fused, "
+                         "and replay_device_events in one profiled replay. Under --fused_cycle "
+                         "a replay's launches are its capture's counted launches, added once "
+                         "per replay: bookkeeping, which replay_device_events confirms on the "
+                         "card",
         "launches_densenet": dn["launches"]["grid"],
         "launches_multihost": [multihost[k]["launches"]["grid"] for k in ("prefetch", "inline")],
         "trace_device_events": traced["grid_device_events"],
@@ -2018,6 +2347,11 @@ def main() -> int:
         "main_path_peak_gb": peak_gb,
         "trace_phase_device_ms": traced["phase_device_ms"],
         "densenet_b5000": dn,
+        "launches_fused_b5000": fused["b5000"]["launches"]["fused"].get("grid", 0),
+        "replay_device_events": fused["replay"]["b5000"]["grid_sinkhorn_device_events"],
+        "fused_b5000": fused["b5000"],
+        "replay_b5000": fused["replay"]["b5000"],
+        "matching_precision_b5000": precision,
     }, {
         "name": "sinkhorn_col_potential",
         "route": "cuda",
@@ -2080,7 +2414,12 @@ def main() -> int:
         "launches": toy["launches"]["resident"],
         "launches_from": (f"phase 9: the toy run, 2 epochs of {TOY_EPOCH_BATCHES} steps at batch "
                           "512 (rank 0's metrics.jsonl); phase 10: "
-                          f"{b256['launches']['resident']} in the DCGAN's 5:1 cycle at batch 256"),
+                          f"{b256['launches']['resident']} in the DCGAN's 5:1 cycle at batch 256; "
+                          "phase 13b: launches_fused in the fused toy and batch-256 runs, "
+                          "replay_device_events in one profiled replay of each. Under "
+                          "--fused_cycle a replay's launches are its capture's counted launches, "
+                          "added once per replay: bookkeeping, which replay_device_events "
+                          "confirms on the card"),
         "max_abs_err": max(r["max_abs_dP"] for r in resident.values()),
         "ms": own["ms"],
         "plain_ms": own["plain_ms"],
@@ -2098,6 +2437,13 @@ def main() -> int:
         "clusters_6x128": clusters,
         "toy_path": toy,
         "dcgan_b256": b256,
+        "launches_fused": {k: fused[k]["launches"]["fused"].get("resident", 0)
+                           for k in ("toy", "b256")},
+        "replay_device_events": {k: fused["replay"][k]["resident_device_events"]
+                                 for k in ("toy", "b256")},
+        "launches_toy_baselines_med_gan": research["med_gan"]["resident"],
+        "fused": {k: fused[k] for k in ("toy", "b256")},
+        "replay": {k: fused["replay"][k] for k in ("toy", "b256")},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)

@@ -36,7 +36,6 @@ from otgan_tpu_torch.kernels.build import build_all
 from otgan_tpu_torch.ops import sinkhorn_cuda as sk
 from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
 from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
-from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.ops.matching import two_batch_costs
 
 BARRIERS = 20000
@@ -112,7 +111,6 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     build_all()
-    true_f32()
     sms, smem = gc.card_limits(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {"card": card, "sms": sms, "smem_per_block": smem, "barrier_us": barrier_us(),

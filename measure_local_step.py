@@ -27,7 +27,6 @@ import torch.distributed as dist
 
 from chip_smoke import ITERS, LAM, card_line, cuda_ms, free_port, unit_features
 from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
-from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
 
 SHAPES = [(6, 313, 2500), (6, 500, 2000), (6, 1000, 1000), (6, 1000, 4000), (6, 4000, 4000)]
@@ -65,7 +64,6 @@ def profile_match(gen, batch: int = 2000) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    true_f32()
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             rank=0, world_size=1)
     try:

@@ -33,7 +33,6 @@ from otgan_tpu_torch.kernels.build import build_all
 from otgan_tpu_torch.ops import sinkhorn_cuda as sk
 from otgan_tpu_torch.ops import sinkhorn_grid_cuda as gc
 from otgan_tpu_torch.ops import sinkhorn_resident_cuda as rc
-from otgan_tpu_torch.ops.costs import true_f32
 from otgan_tpu_torch.ops.matching import two_batch_costs
 
 TIER_SHAPES = [(6, 128), (6, 256), (6, 384), (6, 512), (6, 768), (1, 768)]
@@ -83,7 +82,6 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     build_all()
-    true_f32()
     _, (bw, flops) = peaks(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     exp_rate = sfu_rate()

@@ -6,8 +6,18 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 ``--num_devices``; ``batch_size`` is the GLOBAL batch. ``use_pallas`` means
 "run the Sinkhorn loop in the hand-written CUDA kernel".
 
-Knobs that only steer the TPU runtime (compile caches, the fused cycle
-program, AOT cache) are read and have no effect here.
+``--fused_cycle`` (default on) runs each G:D cycle on one card as one
+CUDA graph, the counterpart of the JAX package's one cycle program
+(``engine.py``); as the JAX config's note says of large batches, turn it
+off where the graphs do not fit: the DenseNet at batch 5000
+(``--grad_accum 4``) fits fused in a fresh process with little to spare
+and ran out of memory beside a few GB held by earlier work
+(``measure_fused.py``), so run it with ``--no_fused_cycle``. ``--compilation_cache_dir`` is read and has no effect:
+eager torch compiles no XLA program to cache, and ``kernels/build.py``
+already keeps the nvcc and g++ output by source hash in ``_build/``; the
+JAX package's ``utils/compile_cache.py`` and ``utils/aot_cache.py`` have
+no counterpart. ``--matching_precision highest|high|default`` is true
+float32, 3xTF32 or one TF32 pass on the card (``ops/costs.py``).
 :meth:`TrainConfig.model_opts` is the JAX package's: the toy reads the
 default ``crelu`` as ``relu``, every family takes ``compute_dtype``,
 ``remat`` and ``remat_policy``, and the DenseNet its block sizes.
@@ -15,8 +25,8 @@ default ``crelu`` as ``relu``, every family takes ``compute_dtype``,
 ``--matching_layout`` and ``--sharded_matching`` pick its matcher;
 ``--multihost`` shards the data over hosts (``torchrun --nnodes``, or the
 manual ``--coordinator_address``, ``--num_processes``, ``--process_id``).
-:func:`check_supported` rejects what has no port yet: a
-``--matching_precision`` other than ``highest``.
+:func:`check_supported` rejects an unknown checkpoint backend or matching
+precision.
 """
 
 from __future__ import annotations
@@ -135,21 +145,14 @@ class TrainConfig:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option the port does not run
-    yet, and ``ValueError`` for an unknown checkpoint backend."""
+    """Raise ``ValueError`` for an unknown checkpoint backend or matching
+    precision (the JAX package's message)."""
     if cfg.checkpoint_backend not in ("npz", "orbax"):
         raise ValueError(f"--checkpoint_backend must be npz or orbax, got "
                          f"{cfg.checkpoint_backend!r}")
-    later = []
-    if cfg.matching_precision != "highest":
-        later.append(
-            f"--matching_precision {cfg.matching_precision} (needs a "
-            "measured Hopper lowering)"
-        )
-    if later:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(later) + " — see ROADMAP.md"
-        )
+    from otgan_tpu_torch.ops.costs import resolve_precision
+
+    resolve_precision(cfg.matching_precision)
 
 
 def _add_bool_flag(p: argparse.ArgumentParser, name: str, default: bool):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from otgan_tpu_torch.engine import Engine, TrainState
-from otgan_tpu_torch.nn.optim import AdamaxState, AdamState, NesterovState
+from otgan_tpu_torch.nn.optim import AdamaxState, AdamState, NesterovState, step_count
 
 
 def _to_port(a) -> torch.Tensor:
@@ -102,7 +102,7 @@ def _field(obj, name: str):
 def opt_state_from_jax(opt, like: Dict[str, torch.Tensor], optimizer: str):
     if optimizer == "adam":
         return AdamState(
-            t=float(np.asarray(_field(opt, "t"))),
+            t=step_count(float(np.asarray(_field(opt, "t"))), like),
             v=_tensors(_field(opt, "v"), like),
             mg=_tensors(_field(opt, "mg"), like),
         )
@@ -117,7 +117,7 @@ def opt_state_from_jax(opt, like: Dict[str, torch.Tensor], optimizer: str):
 def opt_state_to_jax(opt) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     if isinstance(opt, AdamState):
-        out["t"] = np.asarray(opt.t, np.float32)
+        out["t"] = np.asarray(float(opt.t), np.float32)
     for name in ("v", "mg"):
         if hasattr(opt, name):
             out[name] = unflatten_params(getattr(opt, name))
@@ -209,7 +209,7 @@ def jax_leaves(state: TrainState, rng_key: Sequence[int] = (0, 0)) -> List[np.nd
         elif path[0] == "rng":
             out.append(np.asarray(rng_key, np.uint32))
         else:
-            out.append(np.asarray(getattr(getattr(state, path[0]), path[1]), np.float32))
+            out.append(np.asarray(float(getattr(getattr(state, path[0]), path[1])), np.float32))
     return out
 
 

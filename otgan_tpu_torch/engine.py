@@ -9,12 +9,18 @@ as eager PyTorch on one device:
   the critic, Adam with ``-lr`` (ascent, ``train.py:143``).
 
 The 5:1 schedule (step ``s`` is a critic step when ``s % (n + 1) == 0``) is
-a Python loop in :meth:`Engine.cycle`. Step functions take the latent as an
-argument, so a test can feed the JAX package's draw; without one they draw
-the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0, 1)^256``, the
-DenseNet's tuple of four ``U(-1, 1)`` noises) from the state's
-``torch.Generator``. Matching is float32 with TF32 off; model matmuls and
-convs run in ``cfg.compute_dtype``. The model family (``--model
+a Python loop in :meth:`Engine.cycle`. Under ``--fused_cycle`` (the default)
+:meth:`Engine.cycle_step` runs the trainer's cycles on one card as CUDA
+graphs (``cycle_graph.py``): eagerly until each kind of step has run once,
+then one capture per schedule, full or an epoch's leftover, all in one
+memory pool, replayed; ``--sinkhorn_tol > 0``, several ranks and the CPU
+run eagerly, and say why (``fused_cycle_reason``). Step functions take the
+latent as an argument, so a test can feed the JAX package's draw; without
+one they draw the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0,
+1)^256``, the DenseNet's tuple of four ``U(-1, 1)`` noises) from the state's
+``torch.Generator``. Matching is float32 at ``--matching_precision`` (true
+float32 by default, 3xTF32 for ``high``, one TF32 pass for ``default``:
+``ops/costs.py``); model matmuls and convs run in ``cfg.compute_dtype``. The model family (``--model
 dcgan|densenet|toy_mlp``) picks the generator, the critic, the latent
 distribution and the transport cost: cosine for the conv models, the scaled
 squared-Euclidean cost for the toy (``otgan_tpu/engine.py:77-79``), in
@@ -33,8 +39,9 @@ Each step is named for ``torch.profiler`` (``--profile_dir``): ``gen_step``
 or ``disc_step``, inside them ``features``, ``match``, ``loss_backward`` and
 ``update``, and ``microbatch`` under accumulation. ``--debug_nans`` checks
 the loss, the gradients, ``dist`` and ``entropy`` of every step before its
-update and raises ``FloatingPointError`` at the first non-finite one;
-without it a step makes no check and no host sync.
+update and raises ``FloatingPointError`` at the first non-finite one (in a
+captured cycle, from the graph's flags after the replay); without it a
+step makes no check and no host sync.
 
 Several GPUs (counterpart of the JAX engine's mesh half): one process per
 GPU under ``torchrun``, each with the whole model. Every rank is handed the
@@ -73,16 +80,12 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from otgan_tpu_torch.config import TrainConfig, check_supported
+from otgan_tpu_torch.cycle_graph import CycleGraph, TorchGraph
 from otgan_tpu_torch.models import get_model
 from otgan_tpu_torch.nn.ema import ema_init, ema_update
 from otgan_tpu_torch.nn.layers import data_init, reset_parameters
 from otgan_tpu_torch.nn.optim import make_optimizer
-from otgan_tpu_torch.ops.costs import (
-    cosine_cost,
-    resolve_precision,
-    scaled_sqeuclidean_cost,
-    true_f32,
-)
+from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, scaled_sqeuclidean_cost
 from otgan_tpu_torch.ops.losses import med_discriminator_loss, med_generator_loss
 from otgan_tpu_torch.ops.matching import (
     MatchedFeatures,
@@ -196,12 +199,45 @@ class Engine:
             self.opt_update = functools.partial(
                 opt_update, mom1=cfg.adam_mom1, mom2=cfg.adam_mom2
             )
+        # --matching_precision: validated eagerly; "highest" maps to None, the
+        # matchers' default path (otgan_tpu/engine.py:80-84)
         resolve_precision(cfg.matching_precision)
-        true_f32()
+        self.matching_precision = (
+            None if cfg.matching_precision == "highest" else cfg.matching_precision)
         if self.compute_dtype == torch.float32:
             # float32 model compute means float32 convs, not cuDNN's TF32
             torch.backends.cudnn.allow_tf32 = False
         self._matcher = self._make_matcher()
+        self.cycle_batches, self.fused_cycle, self.fused_cycle_reason = self._fused_cycle_plan()
+        # --fused_cycle on the card: calls run eagerly until each kind of step
+        # still to come has run once (lazy init, cuBLAS and cuDNN workspaces,
+        # the kernels' build); then each schedule is captured once and
+        # replayed, every graph in the first one's memory pool
+        self.cycle_graphs = self.fused_cycle
+        self.graph_factory = TorchGraph
+        self._graphs: Dict[Tuple[bool, ...], CycleGraph] = {}
+        self._graph_pool = None
+        self._eager_kinds: set = set()
+        # set while a cycle is captured: --debug_nans checks are deferred here
+        self.deferred_checks: Optional[list] = None
+
+    def _fused_cycle_plan(self) -> Tuple[int, bool, str]:
+        """``(batches a cycle_step call takes, whether they run as a CUDA
+        graph, why not)``. The CPU has no graph but groups the batches as
+        the card does, each cycle run eagerly."""
+        cfg = self.cfg
+        period = cfg.nr_gen_per_disc + 1
+        if not cfg.fused_cycle:
+            return 1, False, "--no_fused_cycle"
+        if cfg.sinkhorn_tol > 0:
+            return 1, False, ("--sinkhorn_tol > 0: the early exit reads the host every "
+                              "iteration, which a graph cannot (ROADMAP queue 2b)")
+        if self.world > 1:
+            return 1, False, (f"{self.world} ranks: NCCL collectives are not captured yet "
+                              "(ROADMAP queue 2b)")
+        if self.device.type != "cuda":
+            return period, False, "cpu: no CUDA graph; each cycle runs eagerly"
+        return period, True, ""
 
     # -- matching mode dispatch (train.py:88-97) --
     def _make_matcher(self):
@@ -229,6 +265,7 @@ class Engine:
             cost_fn=self.cost_fn,
             use_pallas=cfg.use_pallas,
             tol=cfg.sinkhorn_tol,
+            precision=self.matching_precision,
         )
 
     def _make_parallel_matcher(self):
@@ -260,6 +297,7 @@ class Engine:
             cost_fn=self.cost_fn,
             use_pallas=cfg.use_pallas,
             tol=cfg.sinkhorn_tol,
+            precision=self.matching_precision,
         ))
 
     def _gathered(self, match):
@@ -367,6 +405,7 @@ class Engine:
             cost_fn=self.cost_fn,
             tol=cfg.sinkhorn_tol,
             use_pallas=cfg.use_pallas,
+            precision=self.matching_precision,
         )
 
     def _local_latent(self, z):
@@ -476,10 +515,15 @@ class Engine:
 
     def _check_finite(self, step: int, **quantities) -> None:
         """``--debug_nans``: raise at the first non-finite quantity, in the
-        order given (each a tensor or a list of tensors)."""
+        order given (each a tensor or a list of tensors). Under a cycle's
+        capture each flag is recorded instead, for the host to read after
+        each replay (``cycle_graph.py``)."""
         for name, value in quantities.items():
             ts = value if isinstance(value, (list, tuple)) else [value]
-            if not bool(torch.stack([torch.isfinite(t).all() for t in ts]).all()):
+            ok = torch.stack([torch.isfinite(t).all() for t in ts]).all()
+            if self.deferred_checks is not None:
+                self.deferred_checks.append((step, name, ok))
+            elif not bool(ok):
                 raise FloatingPointError(
                     f"--debug_nans: non-finite {name} at step {step} (0-based)")
 
@@ -636,6 +680,44 @@ class Engine:
             state, met = step(state, x, z)
             mets.append(met)
         return state, mets
+
+    def _kinds_ahead(self, step: int) -> set:
+        """The kinds of step (``is_disc_step``) the schedule can still take
+        from ``step`` on."""
+        freeze = self.cfg.disc_freeze_after_steps
+        disc = freeze <= 0 or step < freeze
+        gen = self.cfg.nr_gen_per_disc > 0 or freeze > 0
+        return {k for k, on in ((True, disc), (False, gen)) if on}
+
+    def cycle_step(self, state: TrainState, xs: Sequence) -> Tuple[TrainState, List[StepMetrics]]:
+        """The steps on the batches ``xs`` (``otgan_tpu/engine.py:544-566``).
+        Under ``--fused_cycle`` on the card, calls run eagerly until each
+        kind of step still to come has run once; after that every call, a
+        full cycle or an epoch's leftover, replays the CUDA graph of its
+        schedule, captured at its first call (``cycle_graph.py``). All the
+        graphs share the first one's memory pool: replays never overlap, so
+        the pool holds one cycle's temporaries, and no eager step runs beside
+        it. Under a graph ``--debug_nans`` raises after the replay, so the
+        state is then past the whole cycle, the bad step's update included;
+        the eager path raises before that update. Not fused, the steps run
+        one by one."""
+        if not self.cycle_graphs:
+            return self.cycle(state, xs)
+        xs = [_as_tensor(x).to(self.device, non_blocking=True) for x in xs]
+        schedule = tuple(self.is_disc_step(state.step + i) for i in range(len(xs)))
+        if not self._kinds_ahead(state.step) <= self._eager_kinds:
+            state, mets = self.cycle(state, xs)
+            self._eager_kinds |= set(schedule)
+            if self._kinds_ahead(state.step) <= self._eager_kinds and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()  # the graphs' pool takes what the eager cycles held
+            return state, mets
+        graph = self._graphs.get(schedule)
+        if graph is None:
+            torch.cuda.empty_cache()  # what an epoch's end (samples, eval) left cached
+            graph = CycleGraph(self, state, xs, self.graph_factory, self._graph_pool)
+            self._graphs[schedule], self._graph_pool = graph, graph.pool
+        return graph.replay(state, xs)
 
     # -- sampling (train.py:72-75, x_gens / x_gens_ema) --
     @torch.no_grad()

@@ -10,7 +10,11 @@ Kept exactly, unlike textbook Adam:
 
 Parameters and state are dicts of tensors keyed by parameter name. An update
 writes the new parameters and moments in place (under ``no_grad``) and
-returns the state, so no second copy of the model is ever held.
+returns the state, so no second copy of the model is ever held. Adam's step
+count ``t`` is a float32 tensor on the parameters' device, updated in place
+and read there: an update makes no host sync, so a CUDA graph of a cycle
+replays the right bias corrections, and they are float32 as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -29,23 +33,29 @@ def _zeros(params: Params) -> Params:
 
 @dataclass
 class AdamState:
-    t: float  # shared step, starts at 1 (utils/nn.py:56)
+    t: torch.Tensor  # shared step, float32 on the device, starts at 1 (utils/nn.py:56)
     v: Params  # first moment
     mg: Params  # second moment
 
 
+def step_count(value: float, params: Params) -> torch.Tensor:
+    """Adam's ``t`` as a float32 scalar on the device of ``params``."""
+    device = next(iter(params.values())).device if params else None
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def adam_init(params: Params) -> AdamState:
-    return AdamState(t=1.0, v=_zeros(params), mg=_zeros(params))
+    return AdamState(t=step_count(1.0, params), v=_zeros(params), mg=_zeros(params))
 
 
 @torch.no_grad()
 def adam_update(params: Params, grads: Params, state: AdamState, lr: float,
                 mom1: float = 0.9, mom2: float = 0.999) -> AdamState:
     """Reference ``adam_updates`` (``utils/nn.py:50-73``)."""
-    # bias corrections in float32, as the JAX package computes them
-    t = torch.tensor(state.t, dtype=torch.float32)
-    one_m1 = float(1.0 - torch.pow(torch.tensor(mom1, dtype=torch.float32), t))
-    one_m2 = float(1.0 - torch.pow(torch.tensor(mom2, dtype=torch.float32), t))
+    # bias corrections in float32 on the device, as the JAX package
+    # computes them (1 - mom ** t)
+    one_m1 = 1.0 - torch.pow(mom1, state.t)
+    one_m2 = 1.0 - torch.pow(mom2, state.t)
     for k, p in params.items():
         g, v, mg = grads[k], state.v[k], state.mg[k]
         v.mul_(mom1).add_((1.0 - mom1) * g)
@@ -53,7 +63,7 @@ def adam_update(params: Params, grads: Params, state: AdamState, lr: float,
         mg.mul_(mom2).add_((1.0 - mom2) * g.square())
         mg_hat = mg / one_m2
         p.sub_(lr * v_hat / torch.sqrt(mg_hat + 1e-8))
-    state.t += 1.0
+    state.t.add_(1.0)
     return state
 
 

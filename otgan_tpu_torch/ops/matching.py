@@ -10,16 +10,19 @@ Every matcher is a function of the global feature matrices ``(B, d)``:
 * ``match_random``: the ``--no_sinkhorn`` ablation, a roll by one shard.
 
 Matched features carry no gradient: the reference seeds backprop at the
-feature tensors, so the matchers run under ``torch.no_grad``.
+feature tensors, so the matchers run under ``torch.no_grad``. ``precision``
+(``--matching_precision``) sets every cost and matched-feature matmul
+(``ops/costs.py``); ``None`` is true float32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
+from otgan_tpu_torch.ops.costs import cosine_cost, matmul, resolve_precision
 from otgan_tpu_torch.ops.sinkhorn import sinkhorn_assignment
 
 
@@ -34,18 +37,24 @@ class MatchedFeatures(NamedTuple):
     entropy: torch.Tensor
 
 
-def _mm(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    true_f32()
-    return torch.matmul(p, f)
+def with_precision(cost_fn: Callable, precision: Optional[str]) -> Callable:
+    """``cost_fn`` at an explicit matching precision; ``None`` returns it
+    unchanged, so a custom two-argument cost keeps working
+    (``otgan_tpu/ops/matching.py::_with_precision``)."""
+    if precision is None:
+        return cost_fn
+    return functools.partial(cost_fn, precision=resolve_precision(precision))
 
 
 def two_batch_costs(
     features_a: torch.Tensor,
     features_b: torch.Tensor,
     cost_fn: Callable = cosine_cost,
+    precision: Optional[str] = None,
 ) -> torch.Tensor:
     """The 6 stacked cost matrices in reference order: a1a2, b2b1, a1b1,
     a1b2, a2b1, a2b2 (``utils/matching.py:41-43``)."""
+    cost_fn = with_precision(cost_fn, precision)
     n = features_a.shape[0] // 2
     fa1, fa2 = features_a[:n], features_a[n:]
     fb1, fb2 = features_b[:n], features_b[n:]
@@ -86,9 +95,10 @@ def match_two_batch(
     fb = features_b.detach().float()
     fa1, fa2 = fa[:n], fa[n:]
     fb1, fb2 = fb[:n], fb[n:]
-    costs = two_batch_costs(fa, fb, cost_fn)
+    costs = two_batch_costs(fa, fb, cost_fn, precision)
     p, ent = sinkhorn_assignment(costs, lam, n_iters, use_pallas=use_pallas, tol=tol)
     p_a1a2, p_b2b1, p_a1b1, p_a1b2, p_a2b1, p_a2b2 = p
+    _mm = functools.partial(matmul, precision=precision)
 
     a_a = torch.cat([_mm(p_a1a2, fa2), _mm(p_a1a2.T, fa1)])
     b_b = torch.cat([_mm(p_b2b1.T, fb2), _mm(p_b2b1, fb1)])
@@ -121,12 +131,14 @@ def match_single_batch(
     """Single-batch matching (reference ``get_matched_features_single_batch``):
     self-match diagonals get +999 (``utils/matching.py:109-110``)."""
     resolve_precision(precision)
+    cf = with_precision(cost_fn, precision)
+    _mm = functools.partial(matmul, precision=precision)
     fa = features_a.detach().float()
     fb = features_b.detach().float()
     B = fa.shape[0]
     eye = 999.0 * torch.eye(B, dtype=torch.float32, device=fa.device)
     costs = torch.stack(
-        [cost_fn(fa, fa) + eye, cost_fn(fb, fb) + eye, cost_fn(fa, fb)]
+        [cf(fa, fa) + eye, cf(fb, fb) + eye, cf(fa, fb)]
     )
     p, ent = sinkhorn_assignment(costs, lam, n_iters, use_pallas=use_pallas, tol=tol)
     p_aa, p_bb, p_ab = p

@@ -22,10 +22,10 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision
+from otgan_tpu_torch.ops.costs import cosine_cost
 from otgan_tpu_torch.ops.matching import MatchedFeatures
 from otgan_tpu_torch.ops.sinkhorn import sinkhorn_assignment
-from otgan_tpu_torch.parallel.matching_sharded import _global_batch, _mm
+from otgan_tpu_torch.parallel.matching_sharded import _bind_precision, _global_batch
 from otgan_tpu_torch.parallel.mesh import (
     ProcessGroup,
     all_gather_rows,
@@ -80,7 +80,7 @@ def make_matrix_parallel_two_batch_matcher(
 ):
     """The 6 two-batch matrices (reference order a1a2, b2b1, a1b1, a1b2,
     a2b1, a2b2, ``utils/matching.py:41-43``) solved whole on their owners."""
-    resolve_precision(precision)
+    cost_fn, _mm = _bind_precision(cost_fn, precision)
 
     def solve_into(i, fa, fb, acc, w):
         """Solve matrix ``i`` and add its weighted products into ``acc``
@@ -129,7 +129,7 @@ def make_matrix_parallel_single_batch_matcher(
     """Single-batch variant (reference ``get_matched_features_single_batch``,
     ``utils/matching.py:88-136``): a·a and b·b with the +999 self-match
     diagonal, and a·b, each solved whole on its owners."""
-    resolve_precision(precision)
+    cost_fn, _mm = _bind_precision(cost_fn, precision)
 
     def solve_into(i, fa, fb, acc, w):
         B = fa.shape[0]

@@ -39,13 +39,14 @@ rank k then holds rows ``[k b, (k+1) b)`` of the batch zero-padded to
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
 
-from otgan_tpu_torch.ops.costs import cosine_cost, resolve_precision, true_f32
-from otgan_tpu_torch.ops.matching import MatchedFeatures
+from otgan_tpu_torch.ops.costs import cosine_cost, matmul, resolve_precision
+from otgan_tpu_torch.ops.matching import MatchedFeatures, with_precision
 from otgan_tpu_torch.ops.sinkhorn_step_cuda import make_local_step
 from otgan_tpu_torch.parallel.mesh import (
     ProcessGroup,
@@ -60,9 +61,11 @@ from otgan_tpu_torch.parallel.mesh import (
 _PAD_COST = 999.0
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    true_f32()
-    return torch.matmul(a, b)
+def _bind_precision(cost_fn: Callable, precision: Optional[str]):
+    """``(cost_fn, mm)`` of the matcher makers at ``--matching_precision``
+    (``otgan_tpu/parallel/matching_sharded.py::_bind_precision``)."""
+    resolve_precision(precision)
+    return with_precision(cost_fn, precision), functools.partial(matmul, precision=precision)
 
 
 @torch.no_grad()
@@ -178,7 +181,7 @@ def make_sharded_two_batch_matcher(
 ):
     """``(features_a, features_b) -> MatchedFeatures`` on this rank's rows,
     row-sharded over ``group``. Any even global batch."""
-    resolve_precision(precision)
+    cost_fn, _mm = _bind_precision(cost_fn, precision)
 
     def local(fa_blk, fb_blk, halves: List[torch.Tensor], rank: int,
               n_valid: Optional[int]):
@@ -286,7 +289,7 @@ def make_sharded_single_batch_matcher(
     ``get_matched_features_single_batch``, ``utils/matching.py:88-136``): 3
     matrices, ``+999`` on the self-match diagonals. Outputs are the global
     ``match_single_batch`` rows, no permutation."""
-    resolve_precision(precision)
+    cost_fn, _mm = _bind_precision(cost_fn, precision)
 
     @torch.no_grad()
     def matcher(features_a, features_b, batch: Optional[int] = None) -> MatchedFeatures:

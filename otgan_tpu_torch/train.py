@@ -6,9 +6,20 @@ of the JAX package's trainer (``config.py``). It initialises the models
 epochs under the reference's G:D schedule (``train.py:196-231``): shuffled
 CIFAR-10 (or synthetic) batches, or for ``--model toy_mlp`` fresh
 8-Gaussians batches, 78 a epoch (``OTGAN_TOY_EPOCH_BATCHES`` overrides).
+Under ``--fused_cycle`` (the default) it takes the batches a G:D cycle at
+a time, an epoch's leftover as one group (``otgan_tpu/train.py:400-470``):
+on one card, once each kind of step has run eagerly, every group runs as a
+replay of the CUDA graph of its schedule (``engine.py::cycle_step``);
+``config.json`` and the first record of ``metrics.jsonl`` say whether it
+took effect (``fused_cycle_effective``) and if not why
+(``fused_cycle_reason``).
 It logs JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean
 generator and critic distances and entropy, and with ``--log_every_steps
-N`` every N-th step's dist, entropy and wall time, and per epoch the
+N`` every N-th step's dist, entropy and ``step_ms``: the wall time of the
+group that took the step, from its batches' arrival to the readback of its
+logged metrics, over the group's steps. So a fused cycle's steps share one
+value, with one readback a cycle, while an unfused step is a group of its
+own and reads back alone; per epoch the
 launches of each Sinkhorn kernel and of its plain version since the first
 step (``launches``, this rank's).
 
@@ -84,6 +95,7 @@ every rank writes; rank 0 still writes every other artifact.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -435,7 +447,12 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         cfg = dataclasses.replace(cfg, checkpoint_backend="orbax")
     if rank0:
         os.makedirs(cfg.save_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.save_dir, "config.json"))
+        # the flags, and what --fused_cycle did beside them (loaders of
+        # either package ignore unknown keys)
+        saved = dict(dataclasses.asdict(cfg), fused_cycle_effective=engine.fused_cycle,
+                     fused_cycle_reason=engine.fused_cycle_reason)
+        with open(os.path.join(cfg.save_dir, "config.json"), "w") as f:
+            json.dump(saved, f, indent=2, sort_keys=True)
     data_rng = np.random.default_rng(cfg.seed if pcount == 1 else (cfg.seed, pid))
     is_toy = cfg.model == "toy_mlp"
     host_path = ""
@@ -472,22 +489,40 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         elif speaks:
             print("no checkpoint found; training from scratch", flush=True)
 
+    # --fused_cycle groups the batches a cycle at a time (the JAX trainer's
+    # grouping, otgan_tpu/train.py:400-470), an epoch's leftover as one
+    # group; each group goes to the engine's graph of its schedule; a run
+    # that is not fused takes one batch at a time
+    group = engine.cycle_batches
+
     def work_items():
-        """``(epoch, host batch)`` per step, then ``(epoch, None)`` at each
-        epoch's end."""
+        """``(epoch, [host batches])`` per cycle (or step), then ``(epoch,
+        None)`` at each epoch's end."""
         for epoch in range(start_epoch, cfg.max_epochs):
             batches = _toy_epoch(data_rng, local_batch, n_toy) if is_toy else loader.epoch()
+            pending = []
             for x in batches:
-                yield epoch, x
+                pending.append(x)
+                if len(pending) == group:
+                    yield epoch, pending
+                    pending = []
+            if pending:
+                yield epoch, pending
             yield epoch, None
 
     on_card = engine.device.type == "cuda"
-    place = HostToDevice(engine.device) if cfg.host_prefetch and on_card else (lambda x: x)
+    place_one = HostToDevice(engine.device) if cfg.host_prefetch and on_card else (lambda x: x)
+
+    def place(pending):
+        return [place_one(x) for x in pending]
+
     steps: List[dict] = []
     stride = cfg.log_every_steps
     with MetricLogger(cfg.save_dir) if rank0 else _NoLogger() as logger, \
             profiled(cfg.profile_dir, engine.device, engine.rank):
-        logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread)
+        logger.log(state.step, matcher=engine.matcher_desc, init_spread=engine.init_spread,
+                   fused_cycle_effective=engine.fused_cycle,
+                   fused_cycle_reason=engine.fused_cycle_reason)
         launches0 = kernel_launches()
         mean_dist_gen: List[Optional[float]] = []
         mean_dist_disc: List[Optional[float]] = []
@@ -501,19 +536,23 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
             for epoch, placed in placed_items:
                 if placed is not None:
                     t0 = time.perf_counter()
-                    x = placed.wait() if isinstance(placed, Placed) else placed
-                    is_disc = engine.is_disc_step(state.step)
-                    step_fn = engine.disc_step if is_disc else engine.gen_step
-                    state, met = step_fn(state, x)
-                    (dist_disc if is_disc else dist_gen).append(met.dist)
-                    entropies.append(met.entropy)
-                    if stride and state.step % stride == 0:
-                        dist, ent = float(met.dist), float(met.entropy)  # waits
-                        rec = dict(step=state.step, kind="disc" if is_disc else "gen",
-                                   dist=dist, entropy=ent,
-                                   step_ms=(time.perf_counter() - t0) * 1e3)
-                        steps.append(rec)
-                        logger.log(state.step, **{k: v for k, v in rec.items() if k != "step"})
+                    xs = [p.wait() if isinstance(p, Placed) else p for p in placed]
+                    start = state.step
+                    kinds = [engine.is_disc_step(start + i) for i in range(len(xs))]
+                    state, mets = engine.cycle_step(state, xs)
+                    for is_disc, met in zip(kinds, mets):
+                        (dist_disc if is_disc else dist_gen).append(met.dist)
+                        entropies.append(met.entropy)
+                    logged = [i for i in range(len(xs)) if stride and (start + i + 1) % stride == 0]
+                    if logged:
+                        # waits; a cycle's steps share its wall time
+                        vals = [(float(mets[i].dist), float(mets[i].entropy)) for i in logged]
+                        step_ms = (time.perf_counter() - t0) * 1e3 / len(xs)
+                        for i, (dist, ent) in zip(logged, vals):
+                            rec = dict(step=start + i + 1, kind="disc" if kinds[i] else "gen",
+                                       dist=dist, entropy=ent, step_ms=step_ms)
+                            steps.append(rec)
+                            logger.log(rec["step"], **{k: v for k, v in rec.items() if k != "step"})
                     continue
                 # ---- the epoch's end ----
                 # an epoch with no step of a kind (short epochs under the 5:1

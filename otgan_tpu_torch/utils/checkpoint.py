@@ -123,6 +123,16 @@ def _named_tensors(state) -> Iterator[Tuple[str, torch.Tensor]]:
                 yield from ((f"{field}/{f.name}/{k}", t) for k, t in val.items())
 
 
+def set_opt_scalar(opt, name: str, value: float) -> None:
+    """Restore an optimizer scalar; a tensor (Adam's ``t``) is written in
+    place, so a captured CUDA graph that reads it stays valid."""
+    cur = getattr(opt, name)
+    if isinstance(cur, torch.Tensor):
+        cur.fill_(value)
+    else:
+        setattr(opt, name, value)
+
+
 def _opt_scalars(state) -> Iterator[Tuple[str, object, str]]:
     """``(key, optimizer state, field)`` of each optimizer's scalars
     (Adam's shared step count ``t``)."""
@@ -148,7 +158,7 @@ def _host_arrays(state, slot_dtype: str) -> Dict[str, np.ndarray]:
         else:
             arrays[key] = t.to("cpu", copy=True).numpy()
     for key, opt, name in _opt_scalars(state):
-        arrays[key] = np.asarray(getattr(opt, name), np.float64)
+        arrays[key] = np.asarray(float(getattr(opt, name)), np.float64)
     arrays["step"] = np.asarray(state.step, np.int64)
     arrays["rng"] = state.rng.get_state().numpy().copy()
     arrays["rng_device"] = np.asarray(state.rng.device.type)
@@ -289,7 +299,7 @@ def restore_checkpoint(path: str, state, rng: bool = True):
     for key, opt, name in _opt_scalars(state):
         if key not in arrays:
             raise ValueError(f"{path} has no {key}: a checkpoint of another optimizer?")
-        setattr(opt, name, float(arrays.pop(key)))
+        set_opt_scalar(opt, name, float(arrays.pop(key)))
     state.step = int(arrays.pop("step"))
     saved_rng, rng_device = arrays.pop("rng"), str(arrays.pop("rng_device"))
     if rng:

@@ -53,6 +53,7 @@ from otgan_tpu_torch.utils.checkpoint import (
     _named_tensors,
     _opt_scalars,
     retained_steps,
+    set_opt_scalar,
 )
 
 SUBDIR = "orbax"
@@ -215,7 +216,7 @@ def restore_checkpoint(path: str, state, rng: bool = True):
         raise ValueError(f"{path} has tensors the state lacks: {extra[:5]}")
     dcp.load(template, checkpoint_id=path, **_group_kwargs())
     for key, opt, name in _opt_scalars(state):
-        setattr(opt, name, float(scalars[key]))
+        set_opt_scalar(opt, name, float(scalars[key]))
     state.step = int(template["step"])
     if rng:
         rng_device = bytes(template["rng_device"].tolist()).decode()

@@ -521,3 +521,72 @@ def test_host_to_device_places_batches_on_a_side_stream(cuda_device):
         assert x.is_cuda and x.device.index == torch.cuda.current_device()
         want = torch.from_numpy(host) if isinstance(host, np.ndarray) else host
         assert torch.equal(x.cpu(), want)
+
+
+def _toy_engine(device, cycle_graphs: bool):
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.data.toy import sample_8gaussians
+    from otgan_tpu_torch.engine import Engine
+
+    eng = Engine(TrainConfig(model="toy_mlp", batch_size=64, sinkhorn_lambda=50.0,
+                             nr_sinkhorn_iter=10, nr_gen_per_disc=2), device)
+    eng.cycle_graphs = cycle_graphs
+    rng = np.random.default_rng(0)
+    state, _ = eng.init_state(1, sample_8gaussians(rng, 64))
+    xs = [torch.from_numpy(sample_8gaussians(rng, 64)).to(device) for _ in range(14)]
+    return eng, state, xs
+
+
+@pytest.mark.cuda
+def test_fused_cycle_replay_equals_eager(cuda_device):
+    """The toy at 2:1 in calls of 3, 3, 2, 3 and 3 batches: the eager
+    warm-up, then graphs of three schedules (a full cycle from a critic
+    step, a leftover of 2, a full cycle from a generator step, replayed
+    once), all in the first graph's pool, against the same calls run
+    eagerly: every step's dist and entropy, the parameters, Adam's moments
+    and step count, the generator's state and the resident kernel's
+    launches, bit for bit."""
+    from otgan_tpu_torch.utils.checkpoint import _named_tensors
+
+    out = []
+    for graphs in (True, False):
+        eng, state, xs = _toy_engine(cuda_device, graphs)
+        sinkhorn_resident_cuda.reset_launch_counts()
+        mets, i = [], 0
+        for n in (3, 3, 2, 3, 3):
+            state, m = eng.cycle_step(state, xs[i:i + n])
+            mets, i = mets + m, i + n
+        torch.cuda.synchronize()
+        assert len(eng._graphs) == (3 if graphs else 0)
+        assert len({g.pool for g in eng._graphs.values()}) == (1 if graphs else 0)
+        out.append((state, mets, dict(sinkhorn_resident_cuda.launches)))
+    (a, ma, la), (b, mb, lb) = out
+    assert a.step == b.step == 14 and la == lb == {"kernel": 14, "plain": 0}
+    for x, y in zip(ma, mb):
+        assert torch.equal(x.dist, y.dist) and torch.equal(x.entropy, y.entropy)
+    for (k, x), (_, y) in zip(_named_tensors(a), _named_tensors(b)):
+        assert torch.equal(x, y), k
+    assert torch.equal(a.gen_opt.t, b.gen_opt.t) and torch.equal(a.disc_opt.t, b.disc_opt.t)
+    assert torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device):
+    """A host sync inside the cycle cannot be captured: ``cycle_step``
+    raises with the CUDA error, runs nothing eagerly in its place, and
+    leaves the step count and the counters as they were."""
+    eng, state, xs = _toy_engine(cuda_device, True)
+    state, _ = eng.cycle_step(state, xs[:3])  # the eager warm-up
+    step, launches = state.step, dict(sinkhorn_resident_cuda.launches)
+    cycle = eng.cycle
+
+    def syncing_cycle(st, batches):
+        st, mets = cycle(st, batches)
+        float(mets[0].dist)  # a readback: illegal while the stream is captured
+        return st, mets
+
+    eng.cycle = syncing_cycle
+    with pytest.raises(RuntimeError):
+        eng.cycle_step(state, xs[3:6])
+    torch.cuda.synchronize()
+    assert state.step == step and sinkhorn_resident_cuda.launches == launches

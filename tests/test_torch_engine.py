@@ -177,8 +177,11 @@ def test_config_surface_matches_jax():
     [dict(matching_precision="default"), dict(matching_precision="high")],
 )
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_config.check_supported(port_config.TrainConfig(**kw))
+    """The last options a later slice ported now pass; an unknown
+    precision is rejected with the JAX package's ValueError."""
+    port_config.check_supported(port_config.TrainConfig(**kw))
+    with pytest.raises(ValueError, match="matching precision must be one of"):
+        port_config.check_supported(port_config.TrainConfig(matching_precision="bogus"))
 
 
 @pytest.mark.parametrize(

@@ -69,11 +69,12 @@ def test_costs_match_jax():
 
 
 def test_precision_knob_accepts_highest_only():
+    """Every JAX value is accepted now (high and default have their Hopper
+    lowerings); None is highest; an unknown value is a ValueError."""
     assert costs.resolve_precision(None) == "highest"
-    assert costs.resolve_precision("highest") == "highest"
-    with pytest.raises(NotImplementedError):
-        costs.resolve_precision("high")
-    with pytest.raises(ValueError):
+    for p in ("highest", "high", "default"):
+        assert costs.resolve_precision(p) == p
+    with pytest.raises(ValueError, match="matching precision must be one of"):
         costs.resolve_precision("bogus")
 
 

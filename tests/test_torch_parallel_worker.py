@@ -113,7 +113,8 @@ def _same_on_every_rank(tensors) -> bool:
 
 # ---- tasks ----
 
-def rows_matcher(rank, size, fa, fb, lam, iters, single=False, tol=0.0, batch=None):
+def rows_matcher(rank, size, fa, fb, lam, iters, single=False, tol=0.0, batch=None,
+                 precision=None):
     """This rank's outputs of the row-sharded matcher (kernel path), the
     tier its block picks, and the plain steps it ran. ``fa``/``fb`` are the
     global features, zero-padded to a multiple of ``size`` when ``batch``
@@ -123,12 +124,12 @@ def rows_matcher(rank, size, fa, fb, lam, iters, single=False, tol=0.0, batch=No
 
     make = ms.make_sharded_single_batch_matcher if single else ms.make_sharded_two_batch_matcher
     st.reset_launch_counts()
-    m = make(None, lam, iters, tol=tol, use_pallas=True)(
+    m = make(None, lam, iters, tol=tol, use_pallas=True, precision=precision)(
         _block(fa, rank, size), _block(fb, rank, size), batch=batch)
     return _np(m), dict(st.launches)
 
 
-def matrix_matcher(rank, size, fa, fb, lam, iters, single=False):
+def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None):
     """This rank's outputs of the matrix-parallel matcher (kernel path) and
     the launches of its Sinkhorn tiers (``train.kernel_launches``)."""
     from otgan_tpu_torch import train
@@ -144,7 +145,8 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False):
         mod.reset_launch_counts()
     make = (mm.make_matrix_parallel_single_batch_matcher if single
             else mm.make_matrix_parallel_two_batch_matcher)
-    m = make(None, lam, iters, use_pallas=True)(_block(fa, rank, size), _block(fb, rank, size))
+    m = make(None, lam, iters, use_pallas=True, precision=precision)(
+        _block(fa, rank, size), _block(fb, rank, size))
     return _np(m), train.kernel_launches()
 
 
