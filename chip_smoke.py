@@ -183,6 +183,24 @@ Run from the root of a checkout, it
    ``python -m otgan_tpu_torch.examples.toy_baselines`` for 20 steps of
    each objective: finite weights, ``med_gan`` 40 resident launches
    (2 a step) and the others none;
+15. (before 11) the batch-8000 crash-recovery rehearsal of
+   ``otgan_tpu_torch/examples/marathon_b8000.sh`` at a cut depth: its
+   flags (``--preset model_saving --grad_accum 8 --remat`` under the
+   default ``--fused_cycle``, DCP checkpoints, ``--eval_fid``, the
+   retention flags) but ``--max_epochs 9 --save_every_epochs 2
+   --eval_every_epochs 3 --inception_samples 2000``, in three trainer
+   processes: leg 1 SIGKILLed while ``orbax/5`` is being written, leg 2
+   resumed from ``orbax/3`` at epoch 4 and SIGKILLed after epoch 6, leg 3
+   resumed from ``orbax/5`` at epoch 6 to the end. It fails unless the
+   killed write stays uncommitted, each leg resumes from the newest commit,
+   no uncommitted directory is left and the committed set is
+   ``retained_steps``', raw and EMA IS and FID are finite at every eval,
+   ``evaluate`` on ``orbax/5`` is within 1e-3 relative of leg 2's epoch-5
+   scores, every leg launches kernel 1 once a step and nothing else, the
+   fused cycle holds, a profiled replay of the batch-8000 step graph shows
+   500 local-step device events, and a capture that runs out of memory
+   (the card's free memory held) switches the engine to eager, bit for bit
+   equal to an unfused engine, with no graph pool left;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
@@ -2046,6 +2064,422 @@ def research_phase(card: str) -> dict:
     return res
 
 
+# ---- 15. the batch-8000 crash-recovery rehearsal at a cut depth ----
+MARATHON = os.path.join("otgan_tpu_torch", "examples", "marathon_b8000.sh")
+# the only flags phase 15 changes of the script's: depth
+REHEARSAL_CUTS = {"--max_epochs": "9", "--save_every_epochs": "2", "--eval_every_epochs": "3",
+                  "--inception_samples": "2000"}
+LEG_TIMEOUT = 300  # seconds a leg may take
+EVAL_REL = 1e-3  # evaluate.py against the trainer's logged scores, relative
+SCORES = ("inception_score", "fid", "ema_inception_score", "ema_fid")
+
+
+def script_flags(path: str) -> list:
+    """The words of a marathon script's ``COMMON_FLAGS=( ... )`` array
+    (``"$RUN_DIR"`` left as the word ``$RUN_DIR``)."""
+    import shlex
+
+    with open(path) as f:
+        body = f.read().split("COMMON_FLAGS=(", 1)[1].split("\n)", 1)[0]
+    return shlex.split(body, comments=True)
+
+
+def rehearsal_flags(run_dir: str) -> list:
+    """The port's script's flags with phase 15's depth cuts, in ``run_dir``."""
+    flags = [run_dir if w == "$RUN_DIR" else w for w in script_flags(os.path.join(REPO, MARATHON))]
+    for flag, value in REHEARSAL_CUTS.items():
+        if flag in flags:
+            flags[flags.index(flag) + 1] = value
+        else:
+            flags += [flag, value]
+    return flags
+
+
+def step_dirs(run_dir: str) -> dict:
+    """``{step: (committed, .metadata mtime or None, file names)}`` under
+    ``run_dir/orbax``."""
+    root = os.path.join(run_dir, "orbax")
+    out = {}
+    for n in (os.listdir(root) if os.path.isdir(root) else []):
+        try:
+            names = os.listdir(os.path.join(root, n))
+        except FileNotFoundError:  # removed between the two listings
+            continue
+        meta = os.path.join(root, n, ".metadata")
+        committed = ".metadata" in names
+        try:
+            mtime = os.path.getmtime(meta) if committed else None
+        except FileNotFoundError:
+            committed, mtime = False, None
+        out[int(n)] = (committed, mtime, names)
+    return out
+
+
+def run_leg(name: str, run_dir: str, extra: list, env: dict, kill=None) -> dict:
+    """One leg of the rehearsal: ``python -m otgan_tpu_torch.train`` with
+    the phase's flags as its own process. ``kill(records, dirs)`` is polled
+    every 5 ms on the leg's new ``metrics.jsonl`` records and the step
+    directories; when it returns a dict, the leg gets SIGKILL
+    (``Popen.kill``) and the dict, with the directories just after the kill,
+    is the leg's ``kill``. Every commit seen is kept in ``commits``
+    (``step -> .metadata mtime``). Returns the leg's wall seconds, records,
+    log and kill."""
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    offset = os.path.getsize(metrics) if os.path.exists(metrics) else 0
+    log_path = os.path.join(run_dir, f"{name}.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-u", "-m", "otgan_tpu_torch.train",
+                                 *rehearsal_flags(run_dir), *extra], cwd=REPO, env=env,
+                                stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    killed, commits = None, {}
+
+    def new_records():
+        if not os.path.exists(metrics):
+            return []
+        with open(metrics) as f:
+            f.seek(offset)
+            return [json.loads(line) for line in f.read().splitlines() if line.endswith("}")]
+
+    try:
+        while proc.poll() is None:
+            dirs = step_dirs(run_dir)
+            commits.update({s: t for s, (c, t, _) in dirs.items() if c})
+            if kill is not None:
+                what = kill(new_records(), dirs)
+                if what is not None:
+                    proc.kill()
+                    proc.wait()
+                    killed = dict(what, at_s=time.time() - t0, after_kill={
+                        s: {"committed": c, "files": sorted(f)}
+                        for s, (c, _, f) in step_dirs(run_dir).items()})
+                    break
+            if time.time() - t0 > LEG_TIMEOUT:
+                raise AssertionError(f"rehearsal {name} ran past {LEG_TIMEOUT} s")
+            time.sleep(0.005)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    dirs = step_dirs(run_dir)
+    commits.update({s: t for s, (c, t, _) in dirs.items() if c})
+    with open(log_path) as f:
+        out = f.read()
+    if killed is None and proc.returncode != 0:
+        raise AssertionError(f"rehearsal {name} exited rc {proc.returncode}:\n{out[-4000:]}")
+    return {"wall_s": time.time() - t0, "records": new_records(), "log": out, "kill": killed,
+            "rc": proc.returncode, "commits": commits}
+
+
+def leg_report(name: str, leg: dict) -> dict:
+    """What a leg shows: its restore line, per-epoch seconds, peaks, eval
+    scores by epoch, kernel launches, and whether it stayed fused. Raises
+    where a leg's launches are not kernel 1 once a step, nothing else, or
+    the fused cycle switched off."""
+    recs = leg["records"]
+    restored = [line for line in leg["log"].splitlines() if line.startswith("restored ")]
+    start = recs[0]["step"]
+    epochs = [r for r in recs if "epoch" in r]
+    evals, epoch = {}, None
+    for r in recs:
+        if "epoch" in r:
+            epoch = int(r["epoch"])
+        for k in SCORES:
+            if k in r:
+                evals.setdefault(epoch, {})[k] = r[k]
+    fused = [r["fused_cycle_effective"] for r in recs if "fused_cycle_effective" in r]
+    if not fused or not all(fused):
+        reasons = [r.get("fused_cycle_reason") for r in recs if "fused_cycle_reason" in r]
+        raise AssertionError(f"{name}: the fused cycle did not hold: {fused} {reasons}")
+    for r in epochs:
+        steps = r["step"] - start
+        launches = r["launches"]
+        others = {k: n for k, n in launches.items() if k != "col_potential" and n}
+        if launches["col_potential"] != steps or others:
+            raise AssertionError(f"{name}, epoch {r['epoch']}: {steps} steps launched "
+                                 f"{launches}; kernel 1 once a step and nothing else expected")
+    times = [r["epoch_time"] for r in epochs]
+    rep = {"wall_s": leg["wall_s"], "restored": restored,
+           "epochs": [int(r["epoch"]) for r in epochs],
+           "epoch_s": times, "epoch_s_median": sorted(times)[len(times) // 2] if times else None,
+           "steps": epochs[-1]["step"] - start if epochs else 0,
+           "kernel1_launches": epochs[-1]["launches"]["col_potential"] if epochs else 0,
+           **{k: max((r[k] for r in epochs if k in r), default=None)
+              for k in ("peak_allocated_gb", "peak_reserved_gb")},
+           "evals": evals, "kill": leg["kill"], "fused_cycle_effective": all(fused)}
+    print(f"15 {name}: " + json.dumps(rep), flush=True)
+    for ep, sc in evals.items():
+        if sorted(sc) != sorted(SCORES) or not all(math.isfinite(v) for v in sc.values()):
+            raise AssertionError(f"{name}: eval at epoch {ep} is not finite raw and EMA IS and "
+                                 f"FID: {sc}")
+    return rep
+
+
+def b8000_batches(seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, (8000, 32, 32, 3), dtype=np.uint8)
+
+
+def b8000_replay_events(cfg) -> dict:
+    """A profiled replay of the batch-8000 generator step's graph (the
+    trainer's 1-batch epochs give 1-step graphs), through the engine: the
+    eager warm-up (a critic and a generator step), the capture, then
+    replays with the step held at a generator step; the device events of
+    one replay."""
+    import torch
+    from otgan_tpu_torch.engine import Engine
+
+    eng = Engine(cfg, "cuda")
+    state, _ = eng.init_state(1, b8000_batches(0))
+    xs = [torch.from_numpy(b8000_batches(s)).cuda() for s in (1, 2)]
+    for x in xs:
+        state, _ = eng.cycle_step(state, [x])  # the eager warm-up
+
+    def gen_replay():
+        state.step = 2
+        eng.cycle_step(state, [xs[1]])
+
+    names = device_kernels(gen_replay)  # the capture, then a profiled replay
+    res = {"graphs": len(eng._graphs), "device_kernels": len(names),
+           "local_step_device_events": sum("local_step" in n for n in names),
+           "grid_or_resident_events": sum(("grid_sinkhorn" in n or "resident_sinkhorn" in n)
+                                          for n in names)}
+    if res["local_step_device_events"] != ITERS or res["grid_or_resident_events"]:
+        raise AssertionError(f"a profiled batch-8000 replay (one match) shows {res}")
+    return res
+
+
+def fill_device_memory(leave: int) -> list:
+    """Tensors that take the card's free memory but ``leave`` bytes (which
+    the next ``empty_cache`` hands back to the card), to the last MiB."""
+    import torch
+
+    spare = torch.empty(leave, dtype=torch.uint8, device="cuda")
+    held, size = [], 1 << 30
+    while size >= 1 << 20:
+        try:
+            held.append(torch.empty(size, dtype=torch.uint8, device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            size //= 2
+    del spare
+    return held
+
+
+def capture_oom_check(cfg, card: str) -> dict:
+    """Fault 1 provoked on the card: engines A (fused) and B
+    (``--no_fused_cycle``) from one seed take steps 0-3 (A: eager
+    warm-up, the generator's graph captured and replayed); then the card's
+    free memory is held, so A's capture of the critic step (step 4) runs
+    out of memory. At the switch the held memory is let go (a stand-in for
+    what the dead graph held); A must run eagerly from there on, print why,
+    and take steps 4-5 bit for bit as B does, its generator where B's is."""
+    import dataclasses
+
+    import torch
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils.checkpoint import _named_tensors
+
+    engines = [Engine(cfg, "cuda"), Engine(dataclasses.replace(cfg, fused_cycle=False), "cuda")]
+    states = [e.init_state(1, b8000_batches(0))[0] for e in engines]
+    mets = [[], []]
+    seen = {}
+    a = engines[0]
+    run_eagerly = a._run_eagerly
+
+    def switch(*args):  # the held memory goes with the dead graph
+        held.clear()
+        run_eagerly(*args)
+        seen.update(rng=states[0].rng.get_state(), step=states[0].step,
+                    capturing=torch.cuda.is_current_stream_capturing(),
+                    stream_is_default=torch.cuda.current_stream() == torch.cuda.default_stream(),
+                    reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                    private_pool_segments=sum(tuple(s.get("segment_pool_id", (0, 0))) != (0, 0)
+                                              for s in torch.cuda.memory_snapshot()))
+
+    a._run_eagerly = switch
+    held: list = []
+    rng_b = {}
+    for s in range(6):
+        x = torch.from_numpy(b8000_batches(10 + s)).cuda()
+        if s == 4:
+            rng_b[4] = states[1].rng.get_state()
+            # room for the capture's copy of the batch, not for the capture
+            held = fill_device_memory(2 * x.numel())
+            seen["held_gb"] = sum(t.numel() for t in held) / 1e9
+        for i, e in enumerate(engines):
+            states[i], m = e.cycle_step(states[i], [x])
+            mets[i] += m
+        if s == 3 and len(a._graphs) != 1:
+            raise AssertionError(f"engine A holds {len(a._graphs)} graphs after step 3")
+    equal_steps = all(torch.equal(p.dist, q.dist) and torch.equal(p.entropy, q.entropy)
+                      for p, q in zip(*mets))
+    equal_state = all(torch.equal(p, q) for (_, p), (_, q) in
+                      zip(_named_tensors(states[0]), _named_tensors(states[1])))
+    res = {"reason": a.fused_cycle_reason, "fused_cycle_effective": a.fused_cycle,
+           "graphs_after": len(a._graphs), "held_gb": seen.get("held_gb"),
+           "steps_bitwise_equal": equal_steps, "state_bitwise_equal": equal_state,
+           "rng_at_switch_equals_unfused": bool("rng" in seen and torch.equal(seen["rng"],
+                                                                               rng_b[4])),
+           "rng_end_equal": bool(torch.equal(states[0].rng.get_state(),
+                                             states[1].rng.get_state())),
+           **{k: seen.get(k) for k in ("step", "capturing", "stream_is_default", "reserved_gb",
+                                       "private_pool_segments")}}
+    print(f"15 a capture out of memory at batch 8000 on {card}: " + json.dumps(res), flush=True)
+    del engines, states, mets, seen, a, run_eagerly
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (res["step"] == 4 and not res["fused_cycle_effective"] and not res["graphs_after"]
+            and "ran out of device memory" in res["reason"] and equal_steps and equal_state
+            and res["rng_at_switch_equals_unfused"] and res["rng_end_equal"]
+            and not res["capturing"] and res["stream_is_default"]
+            and not res["private_pool_segments"]):
+        raise AssertionError(f"the switch to eager after a capture out of memory failed: {res}")
+    return res
+
+
+def rehearsal_phase(card: str) -> dict:
+    """15. The batch-8000 rehearsal at a cut depth (``--max_epochs 9
+    --save_every_epochs 2 --eval_every_epochs 3 --inception_samples
+    2000``, every other flag the script's): saves at epochs 1, 3, 5, 7,
+    evals at 2, 5, 8. Leg 1 from scratch, SIGKILLed while ``orbax/5`` is
+    being written (a DCP file there, no ``.metadata``; again, at most three
+    times, if the write wins); leg 2 resumes from ``orbax/3`` at epoch 4,
+    re-runs the epoch-5 eval, re-saves ``orbax/5`` and is SIGKILLed after
+    its epoch-6 record once ``orbax/5`` is committed; leg 3 resumes from
+    ``orbax/5`` at epoch 6 and ends. Then: no uncommitted step directory,
+    the committed set is ``retained_steps``' for the commits seen,
+    ``evaluate`` on ``orbax/5`` scores what leg 2 logged at epoch 5 (1e-3
+    relative), kernel 1 once a step in every leg, the fused cycle held; a
+    profiled replay of the batch-8000 step graph shows 500 local-step
+    device events; and a capture out of memory switches to eager."""
+    import torch
+    from otgan_tpu_torch import evaluate
+    from otgan_tpu_torch.config import parse_args
+    from otgan_tpu_torch.eval import random_weights as rw
+    from otgan_tpu_torch.utils.checkpoint import retained_steps
+
+    t_phase = time.time()
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_rehearsal")
+    weights = os.path.join(REPO, "runs", "chip_smoke_inception_rw.npz")
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    if not os.path.exists(weights):
+        rw.save_npz(weights, seed=2024)
+    env = dict(os.environ, PYTHONPATH=REPO, OTGAN_INCEPTION_WEIGHTS=weights)
+    flags = rehearsal_flags(run_dir)
+    cfg = parse_args(flags)
+    max_keep, hours = cfg.max_checkpoints_to_keep, cfg.keep_checkpoint_every_n_hours
+
+    write_seen: dict = {}
+
+    def during_write(records, dirs):
+        committed, _, names = dirs.get(5, (False, None, []))
+        if 5 in dirs:
+            write_seen.setdefault("t", time.time())
+        if not committed and any("distcp" in n for n in names):
+            return {"files_at_kill": sorted(names),
+                    "s_after_orbax5_appeared": time.time() - write_seen["t"]}
+        return None
+
+    legs, commits = {}, {}
+    for attempt in range(1, 4):
+        write_seen.clear()
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        leg = run_leg("leg1", run_dir, [], env, kill=during_write)
+        if leg["kill"] is None:
+            raise AssertionError("leg 1 ended before orbax/5 was written")
+        leg["kill"]["attempt"] = attempt
+        if not step_dirs(run_dir)[5][0]:
+            break
+        print(f"15 leg 1, attempt {attempt}: the orbax/5 write finished before the kill",
+              flush=True)
+    else:
+        raise AssertionError("three times the orbax/5 write finished before the kill")
+    legs["leg1"] = leg
+    commits.update(leg["commits"])
+    newest = max(s for s, (c, _, _) in step_dirs(run_dir).items() if c)
+    if newest != 3:
+        raise AssertionError(f"after leg 1 the newest committed step is {newest}, not 3")
+
+    def after_epoch6(records, dirs):
+        if any(r.get("epoch") == 6 for r in records) and dirs.get(5, (False,))[0]:
+            return {"orbax7_at_kill": 7 in dirs}
+        return None
+
+    legs["leg2"] = run_leg("leg2", run_dir, ["--load_params"], env, kill=after_epoch6)
+    if legs["leg2"]["kill"] is None:
+        raise AssertionError("leg 2 ended before its epoch-6 record")
+    commits.update(legs["leg2"]["commits"])
+    legs["leg3"] = run_leg("leg3", run_dir, ["--load_params"], env)
+    commits.update(legs["leg3"]["commits"])
+    reps = {name: leg_report(name, leg) for name, leg in legs.items()}
+    for name, (src, ep) in (("leg2", (3, 4)), ("leg3", (5, 6))):
+        want = f"{os.path.join(run_dir, 'orbax', str(src))} "
+        got = reps[name]["restored"]
+        if len(got) != 1 or not got[0].startswith(f"restored {want}") \
+                or not got[0].endswith(f"resuming at epoch {ep}"):
+            raise AssertionError(f"{name} restored {got}, not orbax/{src} at epoch {ep}")
+    if sorted(reps["leg1"]["evals"]) != [2, 5] or sorted(reps["leg2"]["evals"]) != [5] \
+            or sorted(reps["leg3"]["evals"]) != [8]:
+        raise AssertionError("eval events: " + str({k: sorted(r["evals"]) for k, r in
+                                                    reps.items()}))
+    if legs["leg2"]["commits"].get(5, 0) <= legs["leg1"]["commits"].get(3, 0):
+        raise AssertionError("leg 2 did not re-save orbax/5")
+    final = step_dirs(run_dir)
+    stale = sorted(s for s, (c, _, _) in final.items() if not c)
+    kept = sorted(s for s, (c, _, _) in final.items() if c)
+    want_kept = sorted(retained_steps(commits, max_keep, hours))
+    if stale or kept != want_kept:
+        raise AssertionError(f"step directories after leg 3: committed {kept} (retained_steps "
+                             f"gives {want_kept} of {sorted(commits)}), uncommitted {stale}")
+
+    # the committed checkpoint holds the state that was scored
+    keep_env = os.environ.get("OTGAN_INCEPTION_WEIGHTS")
+    os.environ["OTGAN_INCEPTION_WEIGHTS"] = weights
+    try:
+        scored = {}
+        for ema in (False, True):
+            scored[ema] = evaluate.main([
+                "--save_dir", run_dir, "--checkpoint", os.path.join(run_dir, "orbax", "5"),
+                "--batch_size", str(cfg.batch_size), "--seed", "10000", "--num_samples",
+                REHEARSAL_CUTS["--inception_samples"], "--fid_stats_path",
+                os.path.join(run_dir, "fid_stats.npz")] + (["--ema"] if ema else []))
+    finally:
+        if keep_env is None:
+            os.environ.pop("OTGAN_INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["OTGAN_INCEPTION_WEIGHTS"] = keep_env
+    logged = reps["leg2"]["evals"][5]
+    compare = {}
+    for ema in (False, True):
+        tag = "ema_" if ema else ""
+        for k in ("inception_score", "fid"):
+            got, want = scored[ema][k], logged[tag + k]
+            compare[tag + k] = {"evaluate": got, "leg2": want, "leg1": reps["leg1"]["evals"][5][
+                tag + k], "rel": abs(got - want) / abs(want)}
+    print(f"15 evaluate on orbax/5 against leg 2's epoch-5 scores (and leg 1's, beside) on "
+          f"{card}: " + json.dumps(compare), flush=True)
+    # evaluate rounds to 4 decimals; the band is 1e-3 relative
+    if any(c["rel"] > EVAL_REL for c in compare.values()):
+        raise AssertionError(f"evaluate on orbax/5 differs from leg 2's scores: {compare}")
+
+    replay = b8000_replay_events(cfg)
+    print(f"15 a profiled replay of the batch-8000 step graph on {card}: " + json.dumps(replay),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oom = capture_oom_check(cfg, card)
+    res = {"legs": reps, "final_step_dirs": kept, "commits": {str(s): t for s, t in
+                                                                commits.items()},
+           "evaluate": compare, "replay": replay, "capture_oom": oom,
+           "launches_model_saving": {k: r["kernel1_launches"] for k, r in reps.items()},
+           "phase_s": time.time() - t_phase}
+    print(f"15 the batch-8000 rehearsal passed in {res['phase_s']:.1f} s on {card}: committed "
+          f"{kept}; kills: " + json.dumps({k: r["kill"] for k, r in reps.items()}), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2311,6 +2745,10 @@ def main() -> int:
     fused = fused_phase(card)
     research = research_phase(card)
 
+    # ---- 15. the batch-8000 crash-recovery rehearsal at a cut depth ----
+    torch.cuda.empty_cache()
+    rehearsal = rehearsal_phase(card)
+
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
     kernels = [{
@@ -2359,11 +2797,21 @@ def main() -> int:
         "replaces": "otgan_tpu/ops/sinkhorn_pallas_tiled.py:64",
         "design": "the local-step kernel in its v mode, one launch an iteration, one C call "
                   "a match (otgan_col_potential)",
-        "launches": single_counts[8000]["col_potential"],
-        "launches_from": "phase 6: the single-device matcher at batch 8000 (6 x 4000^2, above "
-                         "the grid tier's ceiling), counters zeroed just before; the main path "
-                         "takes the grid tier. Every time of this entry is at that shape, on "
-                         "the matcher's costs; held also at a ragged (2, 2700, 2650)",
+        "launches": sum(rehearsal["launches_model_saving"].values()),
+        "launches_from": "phase 15, this slice's path: the batch-8000 rehearsal (--preset "
+                         "model_saving, fused), the sum of its three trainer processes' counts "
+                         "in metrics.jsonl (each process starts at 0), one a step "
+                         "(launches_model_saving by leg); replay_device_events_b8000 is the "
+                         "local-step kernel's device events in one profiled replay of its "
+                         "generator-step graph (one match). Phase 6: "
+                         "launches_single_device_matcher in the single-device matcher at batch "
+                         "8000 (6 x 4000^2, above the grid tier's ceiling), counters zeroed "
+                         "just before. Every time of this entry is at that shape, on the "
+                         "matcher's costs; held also at a ragged (2, 2700, 2650)",
+        "launches_model_saving": rehearsal["launches_model_saving"],
+        "launches_single_device_matcher": single_counts[8000]["col_potential"],
+        "replay_device_events_b8000": rehearsal["replay"]["local_step_device_events"],
+        "rehearsal_b8000": rehearsal,
         "at_6x2500_ms": grid_t["kernel1_path_ms"],
         **k1,
         "library_ms": None,

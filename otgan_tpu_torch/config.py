@@ -8,11 +8,12 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 
 ``--fused_cycle`` (default on) runs each G:D cycle on one card as one
 CUDA graph, the counterpart of the JAX package's one cycle program
-(``engine.py``); as the JAX config's note says of large batches, turn it
-off where the graphs do not fit: the DenseNet at batch 5000
-(``--grad_accum 4``) fits fused in a fresh process with little to spare
-and ran out of memory beside a few GB held by earlier work
-(``measure_fused.py``), so run it with ``--no_fused_cycle``. ``--compilation_cache_dir`` is read and has no effect:
+(``engine.py``). Where a capture runs out of device memory (the DenseNet
+at batch 5000, ``--grad_accum 4``, fits fused in a fresh process with
+little to spare, ``measure_fused.py``) the engine drops its graphs and runs
+the rest of the run eagerly, as ``--no_fused_cycle`` does, and the trainer
+logs why; ``--no_fused_cycle`` skips the attempt.
+``--compilation_cache_dir`` is read and has no effect:
 eager torch compiles no XLA program to cache, and ``kernels/build.py``
 already keeps the nvcc and g++ output by source hash in ``_build/``; the
 JAX package's ``utils/compile_cache.py`` and ``utils/aot_cache.py`` have

@@ -19,16 +19,23 @@ What a capture must not lose:
 * the capture moves no host state: ``state.step`` and the counters are
   put back after it, and the caller replays at once for the same batches.
 
-A capture that fails raises with the CUDA error (out of memory also names
-``--no_fused_cycle``); nothing falls back to the eager cycle. A graph
-keeps the memory its capture allocated in a private pool; an engine's
-graphs share the first one's pool (``pool``), which is safe because
-replays never overlap and each graph keeps its own outputs alive, so one
-pool holds the temporaries of one cycle, not of each schedule.
+A capture that runs out of device memory raises :class:`CaptureOutOfMemory`
+(also when the capture's end fails after it, "capture invalidated"), and
+leaves no trace: the state, ``state.step``, the launch counters and the
+latent generator are as before it (the generator registered with the dead
+graph is replaced by a fresh one in the same state), and the thread's
+stream is put back. ``Engine.cycle_step`` then drops its graphs and runs
+every later call eagerly, as ``--no_fused_cycle`` does, and says why. Any
+other failed capture raises with the CUDA error. A graph keeps the memory
+its capture allocated in a private pool; an engine's graphs share the first
+one's pool (``pool``), which is safe because replays never overlap and each
+graph keeps its own outputs alive, so one pool holds the temporaries of one
+cycle, not of each schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Sequence, Tuple
 
 import torch
@@ -46,6 +53,39 @@ COUNTERS = (sinkhorn_cuda.launches, sinkhorn_grid_cuda.launches,
             sinkhorn_resident_cuda.launches, sinkhorn_step_cuda.launches)
 
 
+class CaptureOutOfMemory(RuntimeError):
+    """A cycle's capture ran out of device memory; nothing of it remains."""
+
+
+def out_of_memory(e: BaseException) -> bool:
+    """Whether ``e``, or an error it was raised in or from, is the device
+    running out of memory."""
+    while e is not None:
+        if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
+# graphs that a failed capture left half-registered with a generator: the
+# graph lists the generator's state but the state does not list the graph
+# (its first registration allocates, and ran out of memory), and freeing
+# such a graph aborts the process. They never captured, so hold no pool;
+# settle_half_registered completes the registration once memory is back.
+_half_registered: List[Tuple[torch.cuda.CUDAGraph, torch.Generator]] = []
+
+
+def settle_half_registered() -> None:
+    """Complete the generator registrations a failed capture left half
+    done, so those graphs free cleanly; one that fails again stays listed."""
+    for graph, gen in list(_half_registered):
+        try:
+            graph.register_generator_state(gen)
+        except RuntimeError:
+            continue
+        _half_registered.remove((graph, gen))
+
+
 class TorchGraph:
     """``torch.cuda.CUDAGraph`` behind the interface :class:`CycleGraph`
     uses (a test substitutes a stub). Capture is thread-local, so the
@@ -59,10 +99,29 @@ class TorchGraph:
             raise RuntimeError(
                 f"torch {torch.__version__} cannot register a generator with a CUDA graph; "
                 "its replays would reuse one latent draw: run with --no_fused_cycle")
-        self.graph.register_generator_state(gen)
+        try:
+            self.graph.register_generator_state(gen)
+        except RuntimeError:
+            _half_registered.append((self.graph, gen))
+            raise
 
+    @contextlib.contextmanager
     def capture(self, pool=None):
-        return torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local")
+        stream = torch.cuda.current_stream()
+        begun = False
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                begun = True
+                yield
+        except RuntimeError:
+            if not begun:  # capture_begin registers the default generator first
+                device = torch.cuda.current_device()
+                _half_registered.append((self.graph, torch.cuda.default_generators[device]))
+            raise
+        finally:
+            # a capture_begin or capture_end that raises skips the context's
+            # own return to it
+            torch.cuda.set_stream(stream)
 
     def pool(self):
         return self.graph.pool()
@@ -79,23 +138,29 @@ class CycleGraph:
     def __init__(self, engine, state, xs: Sequence[torch.Tensor],
                  graph_factory: Callable = TorchGraph, pool=None):
         self.n = len(xs)
-        self.static_xs = [x.clone() for x in xs]
         self.graph = graph_factory()
-        self.graph.register_generator(state.rng)
+        rng_state = state.rng.get_state()
         step0 = state.step
         before = [dict(c) for c in COUNTERS]
         checks: List[Tuple[int, str, torch.Tensor]] = []
         engine.deferred_checks = checks
         try:
+            self.static_xs = [x.clone() for x in xs]
+            self.graph.register_generator(state.rng)
             with self.graph.capture(pool):
                 _, mets = engine.cycle(state, self.static_xs)
                 self.dists = torch.stack([m.dist for m in mets])
                 self.entropies = torch.stack([m.entropy for m in mets])
                 self.flags = torch.stack([ok for _, _, ok in checks]) if checks else None
         except RuntimeError as e:
-            if "out of memory" in str(e):
-                raise RuntimeError(f"capturing a cycle of {self.n} steps ran out of device "
-                                   f"memory ({e}); run with --no_fused_cycle") from e
+            # the generator stays registered with the dead graph (mid-capture
+            # if its end never ran): the state goes on with a fresh one
+            rng = torch.Generator(device=state.rng.device)
+            rng.set_state(rng_state)
+            state.rng = rng
+            if out_of_memory(e):
+                raise CaptureOutOfMemory(
+                    f"capturing a cycle of {self.n} steps ran out of device memory: {e}") from e
             raise
         finally:
             engine.deferred_checks = None

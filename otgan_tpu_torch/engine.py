@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -80,7 +81,12 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from otgan_tpu_torch.config import TrainConfig, check_supported
-from otgan_tpu_torch.cycle_graph import CycleGraph, TorchGraph
+from otgan_tpu_torch.cycle_graph import (
+    CaptureOutOfMemory,
+    CycleGraph,
+    TorchGraph,
+    settle_half_registered,
+)
 from otgan_tpu_torch.models import get_model
 from otgan_tpu_torch.nn.ema import ema_init, ema_update
 from otgan_tpu_torch.nn.layers import data_init, reset_parameters
@@ -715,9 +721,41 @@ class Engine:
         graph = self._graphs.get(schedule)
         if graph is None:
             torch.cuda.empty_cache()  # what an epoch's end (samples, eval) left cached
-            graph = CycleGraph(self, state, xs, self.graph_factory, self._graph_pool)
+            try:
+                graph = CycleGraph(self, state, xs, self.graph_factory, self._graph_pool)
+            except CaptureOutOfMemory as e:
+                graph, error = None, str(e.__cause__ or e)
+            if graph is None:  # out here, the error's frames and the dead graph are gone
+                self._run_eagerly(state.step, schedule, error)
+                return self.cycle(state, xs)
             self._graphs[schedule], self._graph_pool = graph, graph.pool
         return graph.replay(state, xs)
+
+    def _run_eagerly(self, step: int, schedule: Tuple[bool, ...], error: str) -> None:
+        """After a capture ran out of memory (``error``): drop every graph
+        and their pool, and run this call and every later one eagerly, as
+        ``--no_fused_cycle`` does; ``fused_cycle_reason`` says why."""
+        on_card = self.device.type == "cuda"
+        reserved = torch.cuda.memory_reserved(self.device) if on_card else 0
+        total = torch.cuda.get_device_properties(self.device).total_memory if on_card else 0
+        self._graphs.clear()
+        self._graph_pool = None
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        gc.collect()  # the failed capture's traceback holds its graph in a cycle
+        if on_card:
+            # cuBLAS keeps the workspaces it took under capture, in the
+            # graphs' pool, which they would pin for good
+            getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+            torch.cuda.empty_cache()
+            settle_half_registered()
+        self.cycle_graphs = self.fused_cycle = False
+        kinds = ":".join("D" if d else "G" for d in schedule)
+        held = f" ({reserved / 1e9:.2f} GB reserved of {total / 1e9:.2f})" if on_card else ""
+        self.fused_cycle_reason = (
+            f"capturing the schedule {kinds} at step {step} ran out of device memory{held}; "
+            "from then on every cycle runs eagerly, as under --no_fused_cycle ("
+            f"{error.splitlines()[0][:200] if error else ''})")
 
     # -- sampling (train.py:72-75, x_gens / x_gens_ema) --
     @torch.no_grad()

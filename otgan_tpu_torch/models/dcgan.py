@@ -19,6 +19,7 @@ stages tagged with the JAX package's save points (``disc_c2..4``,
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -56,6 +57,15 @@ class Discriminator(nn.Module):
                  remat_policy: str = ""):
         super().__init__()
         self.remat, self.save = remat, save_names(remat_policy)
+        if "disc_c2_half" in self.save:
+            # the JAX package's save of the first half of disc_c2
+            # (otgan_tpu/models/dcgan.py:63-64); accepted, since that
+            # package takes it, but a segment boundary keeps whole tensors
+            kept = ("recomputed in the backward pass" if remat and "disc_c2" not in self.save
+                    else "kept whole")
+            warnings.warn("--remat_policy disc_c2_half: the port cannot save half a tensor, "
+                          f"so disc_c2 will be {kept}; the numbers do not change, only the "
+                          "memory", UserWarning, stacklevel=2)
         cd = compute_dtype
         self.conv2d_0 = Conv2d(3, 128, (5, 5), pre_activation=None, compute_dtype=cd)
         self.conv2d_1 = Conv2d(128, 256, (5, 5), (2, 2), pre_activation=nonlinearity,
@@ -67,10 +77,7 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images (B, 32, 32, 3) -> unit features (B, 32768)."""
-        # disc_c2_half, the JAX package's save of the first half of disc_c2
-        # (otgan_tpu/models/dcgan.py:63-64), marks no boundary: a segment
-        # boundary keeps whole tensors, so a policy naming only disc_c2_half
-        # recomputes disc_c2 rather than keep twice the bytes it asked for
+        # disc_c2_half marks no boundary (the warning in __init__)
         return run_stages([
             (lambda x: self.conv2d_1(self.conv2d_0(x)), ("disc_c2",)),
             (self.conv2d_2, ("disc_c3",)),

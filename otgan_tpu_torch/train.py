@@ -12,7 +12,9 @@ on one card, once each kind of step has run eagerly, every group runs as a
 replay of the CUDA graph of its schedule (``engine.py::cycle_step``);
 ``config.json`` and the first record of ``metrics.jsonl`` say whether it
 took effect (``fused_cycle_effective``) and if not why
-(``fused_cycle_reason``).
+(``fused_cycle_reason``). A capture that runs out of device memory turns
+it off for the rest of the run: the next record (echoed) says
+``fused_cycle_effective=False`` and the reason.
 It logs JSONL metrics to ``save_dir/metrics.jsonl``: per epoch the mean
 generator and critic distances and entropy, and with ``--log_every_steps
 N`` every N-th step's dist, entropy and ``step_ms``: the wall time of the
@@ -21,7 +23,9 @@ logged metrics, over the group's steps. So a fused cycle's steps share one
 value, with one readback a cycle, while an unfused step is a group of its
 own and reads back alone; per epoch the
 launches of each Sinkhorn kernel and of its plain version since the first
-step (``launches``, this rank's).
+step (``launches``, this rank's), and on the card the process's peak
+device memory allocated and reserved so far (``peak_allocated_gb``,
+``peak_reserved_gb``).
 
 After each epoch it writes 100 samples of the generator and of its EMA
 (``sample<e>.png`` and ``ema_sample<e>.png`` grids for images,
@@ -524,6 +528,7 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                    fused_cycle_effective=engine.fused_cycle,
                    fused_cycle_reason=engine.fused_cycle_reason)
         launches0 = kernel_launches()
+        fused_reason = engine.fused_cycle_reason
         mean_dist_gen: List[Optional[float]] = []
         mean_dist_disc: List[Optional[float]] = []
         # the reference's running max over raw and EMA scores (train.py:264-272)
@@ -540,6 +545,10 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                     start = state.step
                     kinds = [engine.is_disc_step(start + i) for i in range(len(xs))]
                     state, mets = engine.cycle_step(state, xs)
+                    if engine.fused_cycle_reason != fused_reason:  # a capture ran out of memory
+                        fused_reason = engine.fused_cycle_reason
+                        logger.log(state.step, fused_cycle_effective=engine.fused_cycle,
+                                   fused_cycle_reason=fused_reason)
                     for is_disc, met in zip(kinds, mets):
                         (dist_disc if is_disc else dist_gen).append(met.dist)
                         entropies.append(met.entropy)
@@ -569,6 +578,9 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                         vals[key], vals[f"{key}_carried"] = hist[-1], True
                     hist.append(vals.get(key))
                 launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
+                if on_card:  # the process's peaks so far
+                    vals["peak_allocated_gb"] = torch.cuda.max_memory_allocated(engine.device) / 1e9
+                    vals["peak_reserved_gb"] = torch.cuda.max_memory_reserved(engine.device) / 1e9
                 logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
                            entropy=float(torch.stack(entropies).mean()), launches=launches,
                            **vals)

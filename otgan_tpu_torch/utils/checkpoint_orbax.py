@@ -24,9 +24,11 @@ rank's files. Layout: ``<save_dir>/orbax/<step>/``, the JAX package's, so
   :func:`wait_for_pending_saves` joins the writer and re-raises its error.
   With several ranks the plan exchange of every save and restore runs over
   a gloo group of its own, never over the training collectives' group.
-* Retention (``max_to_keep``, ``keep_every_hours``) is applied by rank 0
-  after the commit, as the npz backend's; it also removes uncommitted step
-  directories below the newest committed step.
+* After each commit rank 0 removes the uncommitted step directories below
+  the newest committed step (a write a kill cut short: DCP files without
+  ``.metadata``, or only ``.metadata.tmp``), then applies the retention
+  (``max_to_keep``, ``keep_every_hours``) as the npz backend does, by the
+  mtimes of the commits, so it holds across the run's processes.
 * A checkpoint written by K ranks restores onto any number of ranks (the
   state is replicated; each rank reads all of it).
 
@@ -139,7 +141,7 @@ def save_checkpoint(save_dir: str, state, step: int, max_to_keep: int = 0,
 
     def write() -> None:
         dcp.save(sd, checkpoint_id=path, **kw)
-        if _rank() == 0 and max_to_keep:
+        if _rank() == 0:
             prune_checkpoints(save_dir, max_to_keep, keep_every_hours)
 
     if async_write:
@@ -159,10 +161,11 @@ def committed_steps(save_dir: str) -> Dict[int, str]:
 
 def prune_checkpoints(save_dir: str, max_to_keep: int = 5,
                       keep_every_hours: float = 5.0) -> list:
-    """The npz backend's retention (``checkpoint.retained_steps``) over
-    committed step directories, by the commit's mtime; also removes
-    uncommitted step directories below the newest committed step. The JAX
-    package's orbax steps are left alone. Returns the removed directories."""
+    """Removes the uncommitted step directories below the newest committed
+    step, then applies the npz backend's retention
+    (``checkpoint.retained_steps``; none when ``max_to_keep`` is 0) over the
+    committed ones, by the commit's mtime. The JAX package's orbax steps are
+    left alone. Returns the removed directories."""
     steps = committed_steps(save_dir)
     removed = []
     if not steps:
@@ -175,6 +178,8 @@ def prune_checkpoints(save_dir: str, max_to_keep: int = 5,
                 and not is_jax_orbax(p)):
             shutil.rmtree(p, ignore_errors=True)
             removed.append(p)
+    if not max_to_keep:
+        return removed
     keep = retained_steps({s: os.path.getmtime(os.path.join(p, METADATA))
                            for s, p in steps.items()}, max_to_keep, keep_every_hours)
     for s in sorted(set(steps) - keep):

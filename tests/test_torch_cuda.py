@@ -571,6 +571,61 @@ def test_fused_cycle_replay_equals_eager(cuda_device):
 
 
 @pytest.mark.cuda
+def test_capture_out_of_memory_switches_to_eager(cuda_device):
+    """The toy at 2:1 in calls of 3, 3, 2 and 3 batches, fused and not:
+    the eager warm-up, then with the card's free memory held the first
+    capture runs out of memory (a graph that already holds a pool may find
+    room in it: ``chip_smoke.py`` phase 15 drops one at batch 8000). The
+    held memory is let go at the switch; from then on the engine runs
+    eagerly, no segment of a private pool is left, the stream is not left
+    capturing, and every step, the state and the generator equal the
+    unfused engine's bit for bit."""
+    from chip_smoke import fill_device_memory
+    from otgan_tpu_torch import cycle_graph
+    from otgan_tpu_torch.utils.checkpoint import _named_tensors
+
+    (a, sa, xs), (b, sb, _) = _toy_engine(cuda_device, True), _toy_engine(cuda_device, False)
+    held, seen = [], {}
+    run_eagerly = a._run_eagerly
+
+    def switch(*args):
+        held.clear()
+        run_eagerly(*args)
+        seen.update(capturing=torch.cuda.is_current_stream_capturing(),
+                    stream=torch.cuda.current_stream() == torch.cuda.default_stream(),
+                    pools=sum(tuple(s.get("segment_pool_id", (0, 0))) != (0, 0)
+                              for s in torch.cuda.memory_snapshot()),
+                    half_registered=len(cycle_graph._half_registered))
+
+    a._run_eagerly = switch
+    mets, i = ([], []), 0
+    try:
+        for n in (3, 3, 2, 3):
+            if i == 3:  # the first capture: its new pool finds no room for a segment
+                assert not a._graphs
+                held += fill_device_memory(0)
+            sa, m = a.cycle_step(sa, xs[i:i + n])
+            mets[0].extend(m)
+            sb, m = b.cycle_step(sb, xs[i:i + n])
+            mets[1].extend(m)
+            i += n
+    finally:
+        held.clear()  # a failure here must not starve the next test
+    torch.cuda.synchronize()
+    assert a.cycle_graphs is False and a.fused_cycle is False and a._graphs == {}
+    assert a._graph_pool is None and "ran out of device memory" in a.fused_cycle_reason
+    # a graph left half-registered with a generator would abort the process
+    # when freed: the switch completes the registration
+    assert seen == {"capturing": False, "stream": True, "pools": 0, "half_registered": 0}
+    assert sa.step == sb.step == 11
+    for x, y in zip(*mets):
+        assert torch.equal(x.dist, y.dist) and torch.equal(x.entropy, y.entropy)
+    for (k, x), (_, y) in zip(_named_tensors(sa), _named_tensors(sb)):
+        assert torch.equal(x, y), k
+    assert torch.equal(sa.rng.get_state(), sb.rng.get_state())
+
+
+@pytest.mark.cuda
 def test_failed_capture_raises(cuda_device):
     """A host sync inside the cycle cannot be captured: ``cycle_step``
     raises with the CUDA error, runs nothing eagerly in its place, and

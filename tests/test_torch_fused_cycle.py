@@ -12,7 +12,14 @@ the CPU and whose replay does nothing: the launch counters and
 (an epoch's leftover too) gets a graph in the first graph's pool, capture
 waits until each kind of step still to come has run eagerly, and
 ``--debug_nans`` raises from the graph's flags at the step and quantity the
-eager path names. Adam's step count is a device tensor: its updates against
+eager path names. A capture that runs out of memory (a stub whose capture
+reaches the cycle's first match and raises ``torch.OutOfMemoryError``
+there, as an allocation under capture does on the card) leaves the state,
+the step, the counters and the latent generator as they were, drops every
+graph and the pool, and the engine takes that call and every later one
+eagerly, bit for bit the steps of an unfused engine (tolerance 0); the
+trainer logs the switch; any other failed capture still raises. Adam's
+step count is a device tensor: its updates against
 the JAX package's ``adam_update`` (rtol 1e-6, as tests/test_torch_nn.py),
 and the npz checkpoint and the JAX-format leaves still carry it as before.
 The card's own replays are held in tests/test_torch_cuda.py and
@@ -278,3 +285,152 @@ def test_debug_nans_raises_at_the_same_step_both_ways(bad_step):
             eng.cycle_step(state, xs)
         msgs.append(str(err.value))
     assert msgs[0] == msgs[1] == f"--debug_nans: non-finite loss at step {3 + bad_step} (0-based)"
+
+
+class OomStubGraph(StubGraph):
+    """A stub whose capture runs the cycle until its first match, which runs
+    out of device memory; with ``invalidated`` the capture's end then raises
+    too (``capture_end`` on a broken capture), so the memory error is only
+    the context of the one raised."""
+
+    invalidated = False
+
+    @contextlib.contextmanager
+    def capture(self, pool=None):
+        self.given_pool = pool
+        try:
+            yield
+        except RuntimeError:
+            if self.invalidated:
+                raise RuntimeError("CUDA error: operation failed due to a previous error "
+                                   "during capture")
+            raise
+
+
+def _oom_at_capture(eng, graph_factory):
+    """The engine's next capture uses ``graph_factory``, whose match raises
+    while a capture is on (``deferred_checks`` is set only then)."""
+    matcher = eng._matcher
+
+    def match(*a):
+        if eng.deferred_checks is not None:
+            raise torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 1.50 GiB")
+        return matcher(*a)
+
+    eng._matcher, eng.graph_factory = match, graph_factory
+
+
+@pytest.mark.parametrize("invalidated", [False, True], ids=["oom", "oom-then-invalidated"])
+def test_capture_out_of_memory_switches_to_eager(invalidated):
+    """Warm-up (eager), a full cycle captured and replayed, then the
+    leftover's capture runs out of memory: nothing of the failed capture
+    remains (state, step, counters, the generator's draws), graphs and pool
+    are gone, and that call and the later ones run eagerly, equal bit for
+    bit to an unfused engine over the same 10 batches."""
+    eng, state, rng = _stub_engine()
+    ref, rstate, _ = _engine(fused_cycle=False)
+    xs = _batches(rng, 10)
+    for i in (0, 3):
+        state, _ = eng.cycle_step(state, xs[i:i + 3])
+    assert len(eng._graphs) == 1 and eng._graph_pool is not None
+    graph = type("Oom", (OomStubGraph,), {"invalidated": invalidated})
+    _oom_at_capture(eng, graph)
+    before, counts = _named(state), port_train.kernel_launches()
+    rng_state, step = state.rng.get_state(), state.step
+    import otgan_tpu_torch.engine as engine_mod
+    seen = []
+    run_eagerly = eng._run_eagerly
+
+    def spy(*a):  # the moment of the switch, before this call's eager steps
+        seen.append((_named(state), port_train.kernel_launches(), state.rng.get_state(),
+                     state.step))
+        run_eagerly(*a)
+
+    eng._run_eagerly = spy
+    state, mets = eng.cycle_step(state, xs[6:7])
+    assert engine_mod.CaptureOutOfMemory and len(seen) == 1
+    named, counts_then, rng_then, step_then = seen[0]
+    assert step_then == step and counts_then == counts
+    assert torch.equal(rng_then, rng_state)
+    for k, t in before.items():
+        assert torch.equal(named[k], t), k
+    assert eng.cycle_graphs is False and eng.fused_cycle is False
+    assert eng._graphs == {} and eng._graph_pool is None
+    assert eng.fused_cycle_reason.startswith("capturing the schedule D at step 6 ran out of "
+                                             "device memory")
+    got = list(mets)
+    for i in (7, 10):  # later calls: eager, the old graph never replays
+        cycles = []
+        cycle = eng.cycle
+        eng.cycle = lambda *a: cycles.append(1) or cycle(*a)
+        state, mets = eng.cycle_step(state, xs[i:i + 3])
+        eng.cycle = cycle
+        assert cycles == [1] and eng._graphs == {}
+        got += mets
+    want = []
+    for x in xs:
+        rstate, met = ref.cycle_step(rstate, [x])
+        want += met
+    assert state.step == rstate.step == 13 - 3  # 10 batches
+    for g, w in zip(got, want[6:]):
+        assert torch.equal(g.dist, w.dist) and torch.equal(g.entropy, w.entropy)
+    for (k, t), u in zip(_named(state).items(), _named(rstate).values()):
+        assert torch.equal(t, u), k
+    assert torch.equal(state.rng.get_state(), rstate.rng.get_state())
+
+
+def test_other_capture_failures_still_raise():
+    """A capture that fails for another reason than memory raises as before
+    and leaves the engine fused."""
+    eng, state, rng = _stub_engine()
+    state, _ = eng.cycle_step(state, _batches(rng, 3))
+    matcher = eng._matcher
+
+    def match(*a):
+        if eng.deferred_checks is not None:
+            raise RuntimeError("CUDA error: operation not permitted when stream is capturing")
+        return matcher(*a)
+
+    eng._matcher = match
+    with pytest.raises(RuntimeError, match="not permitted when stream is capturing") as err:
+        eng.cycle_step(state, _batches(rng, 3))
+    assert not isinstance(err.value, torch.OutOfMemoryError)
+    assert eng.cycle_graphs is True and state.step == 3
+
+
+def test_trainer_logs_the_switch_to_eager(tmp_path, monkeypatch):
+    """The trainer under an engine whose second capture runs out of memory:
+    the record after the switch says ``fused_cycle_effective`` false and
+    why, echoed once, and the run goes on to its end with the steps of an
+    unfused run."""
+
+    class OomEngine(port_train.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.cycle_graphs = self.fused_cycle = True
+            self.graph_factory = StubGraph
+            self._captures = 0
+            matcher = self._matcher
+
+            def match(*m):
+                if self.deferred_checks is not None and self._captures:
+                    raise torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2 GiB")
+                return matcher(*m)
+
+            self._matcher = match
+
+        def cycle_step(self, state, xs):
+            out = super().cycle_step(state, xs)
+            self._captures += len(self._graphs)
+            return out
+
+    monkeypatch.setattr(port_train, "Engine", OomEngine)
+    _, recs = _run_trainer(tmp_path, "oom", ["--max_epochs", "2"], monkeypatch)
+    monkeypatch.setattr(port_train, "Engine", Engine)
+    _, plain = _run_trainer(tmp_path, "plain", ["--max_epochs", "2", "--no_fused_cycle"],
+                            monkeypatch)
+    assert recs[0]["fused_cycle_effective"] is True
+    switched = [r for r in recs[1:] if "fused_cycle_effective" in r]
+    assert len(switched) == 1 and switched[0]["fused_cycle_effective"] is False
+    assert "ran out of device memory" in switched[0]["fused_cycle_reason"]
+    assert _step_records(recs) == _step_records(plain) and len(_step_records(recs)) == 8

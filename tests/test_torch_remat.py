@@ -6,7 +6,9 @@ a policy); a scheduling decision, so forward values and gradients must
 equal the plain module's (atol 1e-6, float32, CPU) for the toy, the DCGAN
 and a small DenseNet. Unknown names are inert, and so is ``disc_c2_half``
 (a segment boundary keeps whole tensors, so the port cannot keep the half
-of disc_c2 that JAX's ``save_point_half`` keeps, and keeps none of it). The port's remat gradients also hold against
+of disc_c2 that JAX's ``save_point_half`` keeps, and keeps none of it; the
+critic warns of it, ``tests/test_torch_crash_recovery.py``). The port's
+remat gradients also hold against
 the JAX package's under the same policy (2e-5 of the largest value, as
 ``tests/test_torch_dcgan.py``).
 """
