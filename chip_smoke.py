@@ -74,22 +74,33 @@ Run from the root of a checkout, it
    bitwise equal across two calls and a 3-iteration call must launch
    exactly 3 device kernels, all the local-step kernel (``torch.profiler``);
    then it is timed beside its plain version and its bound, the numbers of
-   its entry;
+   its entry; then each matcher of the group (row-sharded at 2000 and
+   8000, and the matrix-parallel one at 2000: 6 whole 1000^2 matrices
+   through the grid tier) is captured into one CUDA graph, its collectives
+   included, and replayed on new features: bit for bit the eager call's
+   outputs, 500 local-step (row-sharded) or 6 grid (matrix-parallel)
+   device events in a profiled replay, replay and eager ms printed;
 7. with more than one card visible, on K = 4 GPUs (2 when fewer than 4
    are visible) under ``torchrun``: the row-sharded matcher over K ranks against the
    single-device matcher (``chip_smoke.py --ranks``, batches 5000 and
    8000), then training on the row-sharded matcher, once per local-step
-   tier: one 3:1 cycle of ``--preset model_saving`` (layout auto, which
-   resolves to rows; stream tier) and one 5:1 cycle of ``--preset
+   tier: 3:1 cycles of ``--preset model_saving`` (layout auto, which
+   resolves to rows; stream tier) and 5:1 cycles of ``--preset
    train_py --batch_size 1000K --matching_layout rows`` (fused tier); then
-   one 5:1 cycle of ``--preset train_py --matching_layout matrices`` (the
+   5:1 cycles of ``--preset train_py --matching_layout matrices`` (the
    layout ``auto`` picks for train_py: whole 2500^2 matrices on each rank,
-   the grid tier between the collectives). Rank 0 logs the kernels' launch
-   counts of the cycle to ``metrics.jsonl``: the tier's kernel must have
-   launched (the grid kernel once per matrix rank 0 owns and step) and no
-   plain version run. On one card it says that it skipped this, and that
-   the local-step kernels' launches then come from phase 6, not from their
-   training path;
+   the grid tier between the collectives). Each training runs 3 epochs of
+   one cycle under the default ``--fused_cycle`` (each rank's cycle, its
+   NCCL collectives included, one CUDA graph: the first cycle eager, the
+   second captured and replayed, the third replayed; ``cycle_replays`` at
+   least 2 and no reason logged) and again under ``--no_fused_cycle``:
+   every step's dist and entropy bit for bit, or within FUSED_BAND where a
+   collective picks another algorithm under capture; step ms and peaks of
+   both printed. Rank 0 logs the kernels' launch counts to
+   ``metrics.jsonl``: the tier's kernel must have launched (the grid
+   kernel once per matrix rank 0 owns and step) and no plain version run.
+   On one card it says that it skipped this, and that the local-step
+   kernels' launches then come from phase 6, not from their training path;
 8. holds the resident kernel (one launch per match, the matrices in shared
    memory) against its plain version and against kernel 1's path at lam =
    500, 500 iterations: (6, 128, 128) (the DCGAN at batch 256), (6, 256,
@@ -153,10 +164,11 @@ Run from the root of a checkout, it
    samples) read the directory;
 12d. with two or more cards: two "hosts", two ``torchrun`` agents
    (``--nnodes 2``, c10d rendezvous on localhost, half the cards each),
-   ``--multihost --matching_layout rows`` at batch 5000 for one cycle, then
-   a resume: each process says ``process p/2 (local batch 2500)`` and the
-   local-step kernel's launches come from this run; on one card it says
-   why it did not run;
+   ``--multihost --matching_layout rows`` at batch 5000 for one cycle in
+   epochs of 2 batches, fused (the second epoch captured and replayed, the
+   third replayed), then a resume: each process says ``process p/2 (local
+   batch 2500)`` and the local-step kernel's launches come from this run;
+   on one card it says why it did not run;
 13a. (13a-13c run before 11) ``match_two_batch`` at batch 5000 (d 32768,
    lam 500, the grid tier) under ``--matching_precision highest``, ``high``
    (3xTF32) and ``default`` (one TF32 pass): ms per match, and the matched
@@ -542,6 +554,10 @@ def hold_grid(costs, label: str, blocks=None) -> dict:
 
 STEP_M_TOL, STEP_S_RTOL = 1e-6, 1e-5  # one local step: m absolute, s relative
 MULTI_GPU_TIMEOUT = 300
+# K-rank fused steps against unfused: bit for bit, unless a collective picks
+# another algorithm under capture; then the band of
+# tests/test_torch_parallel.py's engine test (dist and entropy)
+FUSED_BAND = 1e-4
 
 
 def free_port() -> int:
@@ -717,17 +733,85 @@ def time_local_step(blk, mode: str, bw: float, flops: float, exp_rate: float) ->
     }
 
 
+def capture_matcher(matcher, fa, fb, gen, kernel: str, events: int, card: str,
+                    label: str) -> dict:
+    """``matcher`` (of a process group) captured into one CUDA graph on
+    the features ``fa``, ``fb``, its collectives and kernels included, then
+    replayed on new features: bit for bit the eager call's outputs on them;
+    a profiled replay must show ``events`` device events of ``kernel``;
+    replay and eager ms a match."""
+    import torch
+    from otgan_tpu_torch.cycle_graph import TorchGraph
+
+    static = [fa.clone(), fb.clone()]
+    graph = TorchGraph()
+    with graph.capture():
+        out = matcher(*static)
+    new = [unit_features(gen, *fa.shape), unit_features(gen, *fb.shape)]
+    want = [t.clone() for t in matcher(*new)]
+    for s, t in zip(static, new):
+        s.copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(o, w) for o, w in zip(out, want))
+    max_diff = max(float((o - w).abs().max()) for o, w in zip(out, want))
+    names = device_kernels(graph.replay)
+    res = {"batch": fa.shape[0], "bitwise_equal": bitwise, "max_abs_diff": max_diff,
+           "device_kernels_in_replay": len(names),
+           f"{kernel}_device_events": sum(kernel in n for n in names),
+           "replay_ms": cuda_ms(graph.replay, reps=5),
+           "eager_ms": cuda_ms(lambda: matcher(*new), reps=3)}
+    print(f"{label} captured with its collectives, replayed on new features on {card}: "
+          + json.dumps(res), flush=True)
+    if not bitwise or res[f"{kernel}_device_events"] != events:
+        raise AssertionError(f"the captured {label} replays wrong: {res}")
+    return res
+
+
+def descendants(pid: int) -> list:
+    """The processes ``pid`` started, and theirs (torchrun's workers run in
+    sessions of their own), from ``/proc``."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
 def run_group(cmd, timeout: float, env) -> subprocess.CompletedProcess:
-    """Run ``cmd`` in its own process group; on timeout kill the whole group."""
+    """Run ``cmd`` in its own process group. On timeout every process it
+    started gets SIGABRT first (Python, under ``PYTHONFAULTHANDLER``, prints
+    each thread's stack: where a rank hung), then all are killed, and what
+    they printed is shown before the timeout is raised."""
     import signal
 
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(env, PYTHONFAULTHANDLER="1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+        started = descendants(proc.pid)
+        for sig in (signal.SIGABRT, signal.SIGKILL):
+            for pid in started + ([proc.pid] if sig == signal.SIGKILL else []):
+                try:
+                    os.kill(pid, sig)
+                except ProcessLookupError:
+                    pass
+            time.sleep(5)
+        out, err = proc.communicate()
+        print(out[-3000:], flush=True)
+        print(err[-12000:], file=sys.stderr, flush=True)
         raise
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
@@ -796,48 +880,146 @@ def ranks_check() -> int:
     return 0
 
 
-def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env) -> dict:
-    """One cycle of ``otgan_tpu_torch.train --preset preset`` on ``k`` GPUs
-    under torchrun, on synthetic data of two batches; checks the cycle, its
-    finite dist and entropy, and from rank 0's ``metrics.jsonl`` that the
-    matcher ran the ``tier`` kernel and no plain version: a local-step tier
-    (``fused``, ``stream``) of the row-sharded matcher, or ``grid`` for the
-    matrix-parallel one, which must launch it once per matrix rank 0 owns
-    and step, and nothing else."""
+def fused_ranks_check() -> int:
+    """``torchrun --nproc_per_node K chip_smoke.py --fused-ranks``: NCCL
+    collectives inside CUDA graphs on K ranks, stage by stage, each stage
+    bounded (faulthandler prints every thread's stack and exits where a
+    rank hangs): eager collectives; one graph of an all-reduce, an
+    all-gather and a reduce-scatter, replayed on new values after an eager
+    collective; then the row-sharded matcher (batch 1000 K, the fused tier)
+    and the matrix-parallel matcher (batch 5000, the grid tier) captured
+    and replayed on new features (``capture_matcher``: bit for bit the eager
+    call, ITERS local steps or each owned matrix's grid launch in a profiled
+    replay). Rank 0 prints one ``fused_ranks_check`` JSON line."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from otgan_tpu_torch.cycle_graph import TorchGraph
+    from otgan_tpu_torch.parallel.matching_matrix import (
+        _owner_counts,
+        make_matrix_parallel_two_batch_matcher,
+    )
+    from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
+    from otgan_tpu_torch.parallel.mesh import all_gather_rows, init_from_env, reduce_scatter_rows
+
+    init_from_env("cuda")
+    rank, size = dist.get_rank(), dist.get_world_size()
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"ranks": size, "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+
+    def stage(name: str, seconds: int = 90) -> None:
+        faulthandler.dump_traceback_later(seconds, exit=True)
+        print(f"fused ranks, rank {rank}: {name} at {time.time():.1f}", flush=True)
+
+    stage("eager collectives")
+    x = torch.full((6, 1000), float(rank + 1), device="cuda")
+
+    def collectives(t):
+        y = t.clone()
+        dist.all_reduce(y)
+        return y, all_gather_rows(t, None), reduce_scatter_rows(t.repeat(size, 1), None)
+
+    want = [w.clone() for w in collectives(x)]
+    torch.cuda.synchronize()
+    stage("collectives captured")
+    static = x.clone()
+    graph = TorchGraph()
+    with graph.capture():
+        got = collectives(static)
+    agreed = all_gather_rows(torch.tensor([0], device="cuda"), None).tolist()
+    stage("collectives replayed")
+    x2 = x * 3.0
+    want2 = [w.clone() for w in collectives(x2)]
+    static.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    report["collectives_bitwise"] = agreed == [0] * size and all(
+        torch.equal(g, w) for g, w in zip(got, want2))
+    del graph, got
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, make, B, kernel, events in (
+            ("rows", make_sharded_two_batch_matcher, 1000 * size, "local_step", ITERS),
+            ("matrices", make_matrix_parallel_two_batch_matcher, BATCH, "grid_sinkhorn",
+             _owner_counts(6, size)[0])):
+        stage(f"{label} matcher, eager then captured")
+        matcher = make(None, LAM, ITERS, use_pallas=True)
+        fa, fb = unit_features(gen, B // size, 32768), unit_features(gen, B // size, 32768)
+        matcher(fa, fb)
+        report[label] = capture_matcher(matcher, fa, fb, gen, kernel, events, card,
+                                        f"{label} matcher on rank {rank} of {size}, batch {B}")
+        del fa, fb
+        torch.cuda.empty_cache()
+    faulthandler.cancel_dump_traceback_later()
+    if rank == 0:
+        print("fused_ranks_check: " + json.dumps(report), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    if not report["collectives_bitwise"]:
+        raise AssertionError(f"captured collectives disagree on {size} ranks: {report}")
+    return 0
+
+
+def train_on_gpus(k: int, preset: str, batch: int, flags, cycle, tier: str, env,
+                  fused: bool) -> dict:
+    """3 epochs of one G:D cycle (``cycle``, the steps' kinds) of
+    ``otgan_tpu_torch.train --preset preset`` on ``k`` GPUs under torchrun,
+    on synthetic data of one cycle's batches, fused (the default: the first
+    cycle eager, the second captured and replayed, the third replayed) or
+    ``--no_fused_cycle``; checks the steps, their finite dist and entropy,
+    that a fused run replayed at least twice without a reason not to, and
+    from rank 0's ``metrics.jsonl`` that the matcher ran the ``tier`` kernel
+    and no plain version: a local-step tier (``fused``, ``stream``) of the
+    row-sharded matcher, or ``grid`` for the matrix-parallel one, which must
+    launch it once per matrix rank 0 owns and step, and nothing else."""
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
     from otgan_tpu_torch.parallel.matching_matrix import _owner_counts
 
-    run_dir = os.path.join(REPO, "runs", f"chip_smoke_{k}gpu_{preset}_{tier}")
+    how = "fused" if fused else "unfused"
+    run_dir = os.path.join(REPO, "runs", f"chip_smoke_{k}gpu_{preset}_{tier}_{how}")
     shutil.rmtree(run_dir, ignore_errors=True)  # metrics.jsonl is appended to
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={k}", "-m", "otgan_tpu_torch.train", "--num_devices", str(k),
-           "--preset", preset, "--synthetic_data", "--synthetic_size", str(2 * batch),
-           "--log_every_steps", "1", "--save_dir", run_dir, *flags]
+           "--preset", preset, "--synthetic_data", "--synthetic_size", str(len(cycle) * batch),
+           "--max_epochs", "3", "--log_every_steps", "1", "--save_dir", run_dir, *flags,
+           *([] if fused else ["--no_fused_cycle"])]
     t0 = time.time()
     out = run_group(cmd, MULTI_GPU_TIMEOUT, env)
     print(out.stdout[-3000:], flush=True)
     if out.returncode != 0:
         print(out.stderr[-6000:], file=sys.stderr, flush=True)
-        raise AssertionError(f"torchrun --preset {preset} on {k} GPUs exited {out.returncode}")
+        raise AssertionError(f"torchrun --preset {preset} ({how}) on {k} GPUs exited "
+                             f"{out.returncode}")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [r for r in recs if "step_ms" in r]
-    launches = [r["launches"] for r in recs if "epoch" in r][-1]
-    res = dict(gpus=k, preset=preset, batch=batch, matcher=recs[0]["matcher"],
+    epochs = [r for r in recs if "epoch" in r]
+    launches = epochs[-1]["launches"]
+    switched = [r for r in recs[1:] if "fused_cycle_reason" in r]
+    res = dict(gpus=k, preset=preset, batch=batch, how=how, matcher=recs[0]["matcher"],
                init_spread=recs[0]["init_spread"], launches=launches,
-               wall_s=time.time() - t0,
+               fused_cycle_effective=recs[0]["fused_cycle_effective"],
+               fused_cycle_reason=recs[0]["fused_cycle_reason"], switched=switched,
+               cycle_replays=epochs[-1]["cycle_replays"],
+               peak_allocated_gb=epochs[-1]["peak_allocated_gb"],
+               peak_reserved_gb=epochs[-1]["peak_reserved_gb"], wall_s=time.time() - t0,
                steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")} for r in steps])
-    print(f"{k} GPUs, --preset {preset} {' '.join(flags)}: {json.dumps(res)}", flush=True)
-    if [r["kind"] for r in steps] != kinds:
-        raise AssertionError(f"expected the cycle {kinds}, got {[r['kind'] for r in steps]}")
+    print(f"{k} GPUs, --preset {preset} {' '.join(flags)} ({how}) on {card_line()}: "
+          f"{json.dumps(res)}", flush=True)
+    if [r["kind"] for r in steps] != list(cycle) * 3:
+        raise AssertionError(f"expected 3 cycles {cycle}, got {[r['kind'] for r in steps]}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
-        raise AssertionError(f"non-finite dist or entropy on {k} GPUs ({preset})")
+        raise AssertionError(f"non-finite dist or entropy on {k} GPUs ({preset}, {how})")
+    if fused and (not res["fused_cycle_effective"] or res["fused_cycle_reason"] or switched
+                  or res["cycle_replays"] < 2):
+        raise AssertionError(f"{preset} on {k} GPUs did not run fused to the end: {res}")
     if tier == "grid":
         if not res["matcher"].startswith("matrix-parallel"):
             raise AssertionError(f"the run did not take the matrix-parallel matcher: "
                                  f"{res['matcher']}")
         rounds = _owner_counts(6, k)[0]  # matrices rank 0 owns a step
-        check_tier_path(launches, "grid", f"training on {k} GPUs ({preset}, matrices)",
+        check_tier_path(launches, "grid", f"training on {k} GPUs ({preset}, matrices, {how})",
                         want=rounds * len(steps))
         return res
     if not res["matcher"].startswith("row-sharded"):
@@ -850,11 +1032,36 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, kinds, tier: str, env)
     return res
 
 
+def train_both_ways(k: int, preset: str, batch: int, flags, cycle, tier: str, env) -> dict:
+    """The same training fused and ``--no_fused_cycle`` (``train_on_gpus``):
+    every step's dist and entropy, bit for bit, or where a collective picks
+    another algorithm under capture within FUSED_BAND; the fused run's
+    entry with the unfused one and the differences beside it."""
+    fused = train_on_gpus(k, preset, batch, flags, cycle, tier, env, fused=True)
+    unfused = train_on_gpus(k, preset, batch, flags, cycle, tier, env, fused=False)
+    pairs = list(zip(fused["steps"], unfused["steps"]))
+    diff = {q: max(abs(a[q] - b[q]) for a, b in pairs) for q in ("dist", "entropy")}
+    fused.update(unfused=unfused, bitwise_equal_to_unfused=all(
+        a[q] == b[q] for a, b in pairs for q in ("dist", "entropy")),
+        max_abs_diff_to_unfused=diff)
+    print(f"{k} GPUs, --preset {preset} {' '.join(flags)}: fused against unfused: bitwise "
+          f"{fused['bitwise_equal_to_unfused']}, max |d| {diff}; step ms fused "
+          f"{[r['step_ms'] for r in fused['steps']]}, unfused "
+          f"{[r['step_ms'] for r in unfused['steps']]}; peaks allocated / reserved fused "
+          f"{fused['peak_allocated_gb']:.2f} / {fused['peak_reserved_gb']:.2f} GB, unfused "
+          f"{unfused['peak_allocated_gb']:.2f} / {unfused['peak_reserved_gb']:.2f} GB",
+          flush=True)
+    if max(diff.values()) > FUSED_BAND:
+        raise AssertionError(f"{preset} on {k} GPUs: fused and unfused steps differ by {diff}")
+    return fused
+
+
 def multi_gpu_phase(n_cards: int) -> dict:
     """With more than one card: the row-sharded matcher over the ranks
     (``--ranks``), then training on the row-sharded matcher once per
-    local-step tier, then on the matrix-parallel matcher (the grid tier).
-    Returns the runs by tier, or ``{}`` on one card."""
+    local-step tier, then on the matrix-parallel matcher (the grid tier),
+    each fused and unfused (``train_both_ways``). Returns the fused runs by
+    tier, or ``{}`` on one card."""
     import torch
 
     if n_cards < 2:
@@ -877,20 +1084,29 @@ def multi_gpu_phase(n_cards: int) -> dict:
                              f"{check.returncode}")
     ranks = json.loads(next(line for line in check.stdout.splitlines()
                             if line.startswith("ranks_check: "))[len("ranks_check: "):])
+    captured = run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc_per_node={k}", os.path.join(REPO, "chip_smoke.py"),
+                          "--fused-ranks"], MULTI_GPU_TIMEOUT, env)
+    print(captured.stdout[-6000:], flush=True)
+    if captured.returncode != 0:
+        print(captured.stderr[-12000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"the captured collectives and matchers on {k} GPUs exited "
+                             f"{captured.returncode}")
+    ranks["captured"] = json.loads(next(
+        line for line in captured.stdout.splitlines()
+        if line.startswith("fused_ranks_check: "))[len("fused_ranks_check: "):])
     # model_saving (batch 8000, 3:1, auto -> rows): block (4000/K, 4000), the
     # stream tier; train_py at batch 1000 K, rows: block (500, 500 K), fused
-    multi = {"stream": train_on_gpus(k, "model_saving", 8000, ["--max_epochs", "2"],
-                                     ["disc"] + ["gen"] * 3, "stream", env)}
+    multi = {"stream": train_both_ways(k, "model_saving", 8000, [], ["disc"] + ["gen"] * 3,
+                                       "stream", env)}
     multi["stream"]["ranks"] = ranks
     if "-> rows]" not in multi["stream"]["matcher"]:
         raise AssertionError(f"auto did not resolve to rows: {multi['stream']['matcher']}")
-    multi["fused"] = train_on_gpus(
-        k, "train_py", 1000 * k, ["--batch_size", str(1000 * k), "--matching_layout", "rows",
-                                  "--max_epochs", "3"],
+    multi["fused"] = train_both_ways(
+        k, "train_py", 1000 * k, ["--batch_size", str(1000 * k), "--matching_layout", "rows"],
         ["disc"] + ["gen"] * 5, "fused", env)
-    multi["grid"] = train_on_gpus(k, "train_py", BATCH, ["--matching_layout", "matrices",
-                                                         "--max_epochs", "3"],
-                                  ["disc"] + ["gen"] * 5, "grid", env)
+    multi["grid"] = train_both_ways(k, "train_py", BATCH, ["--matching_layout", "matrices"],
+                                    ["disc"] + ["gen"] * 5, "grid", env)
     return multi
 
 
@@ -1766,13 +1982,21 @@ def two_hosts_phase(n_cards: int) -> dict:
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [r for r in recs if "kind" in r]
-    launches = [r for r in recs if "epoch" in r][-1]["launches"]
+    last = [r for r in recs if "epoch" in r][-1]
+    launches = last["launches"]
     res = dict(cards=n_cards, ranks_per_host=k, wall_s=wall, matcher=recs[0]["matcher"],
-               launches=launches, steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")}
-                                         for r in steps])
+               launches=launches, fused_cycle_effective=recs[0]["fused_cycle_effective"],
+               fused_cycle_reason=recs[0]["fused_cycle_reason"],
+               cycle_replays=last["cycle_replays"],
+               steps=[{x: r[x] for x in ("kind", "dist", "entropy", "step_ms")} for r in steps])
     if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5 or not all(
             math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError(f"two hosts: the cycle is wrong: {res}")
+    # epochs of 2 batches: the first eager, the second captured and
+    # replayed, the third replayed, each rank's collectives in its graphs
+    if not res["fused_cycle_effective"] or res["cycle_replays"] < 2 or any(
+            "fused_cycle_reason" in r for r in recs[1:]):
+        raise AssertionError(f"two hosts: the cycles did not run fused: {res}")
     local = {t: n for t, n in launches.items()
              if t.startswith("local_step_") and t != "local_step_plain"}
     if not any(local.values()) or launches["local_step_plain"] or launches["col_potential_plain"]:
@@ -2480,6 +2704,120 @@ def rehearsal_phase(card: str) -> dict:
     return res
 
 
+def sharded_phase(card: str, gen, bw: float, flops: float, exp_rate: float,
+                  peak_key: str) -> dict:
+    """6. The multi-GPU matchers in a one-process NCCL group: the row-sharded
+    matcher at batches 2000 and 8000 and the matrix-parallel one at 2000
+    against the single-device matcher (whose launches are read too, and
+    where kernel 1 is held and timed at batch 8000), eager, then each
+    captured into a CUDA graph and replayed (``capture_matcher``)."""
+    import torch
+    import torch.distributed as dist
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.ops import sinkhorn_cuda as sk
+    from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
+    from otgan_tpu_torch.ops.costs import cosine_cost
+    from otgan_tpu_torch.ops.matching import match_two_batch, two_batch_costs
+    from otgan_tpu_torch.parallel.matching_matrix import make_matrix_parallel_two_batch_matcher
+    from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"6 NCCL {nccl} (torch {torch.__version__}, CUDA {torch.version.cuda}) on {card}",
+          flush=True)
+    sharded, single_counts = {}, {}
+    try:
+        rows_matcher = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
+        matrix_matcher = make_matrix_parallel_two_batch_matcher(None, LAM, ITERS,
+                                                                use_pallas=True)
+        for B in (2000, 8000):
+            fa, fb = unit_features(gen, B, 32768), unit_features(gen, B, 32768)
+            # the single-device matcher: the grid tier at batch 2000 (6 x
+            # 1000^2), kernel 1 at batch 8000 (6 x 4000^2, above the grid
+            # tier's ceiling), counters zeroed just before
+            reset_all_counts()
+            ref = match_two_batch(fa, fb, LAM, ITERS, use_pallas=True)
+            torch.cuda.synchronize()
+            single_counts[B] = train_mod.kernel_launches()
+            want = "grid" if B == 2000 else "col_potential"
+            check_tier_path(single_counts[B], want, f"the single-device matcher at batch {B}",
+                            want=1)
+            if B == 8000:
+                # and at a ragged shape above the ceiling: (2, 2700, 2650)
+                ragged_k1 = torch.stack([cosine_cost(unit_features(gen, 2700, 32768),
+                                                     unit_features(gen, 2650, 32768))
+                                         for _ in range(2)])
+                k1 = time_kernel1(two_batch_costs(fa, fb), ragged_k1, bw, flops, exp_rate)
+                del ragged_k1
+                print(f"kernel 1 (the local-step kernel's v mode) at {k1['shape']} x {ITERS} "
+                      f"iters, the single-device matcher's "
+                      f"costs at batch {B}, on {card}: kernel {k1['ms']:.3f} ms, plain "
+                      f"{k1['plain_ms']:.3f} ms; bound {k1['bound_ms']:.4f} ms by "
+                      f"{k1['bound_by']} at {peak_key} peaks (expf alone "
+                      f"{k1['sfu_floor_ms']:.4f} ms); streaming x every iteration needs "
+                      f"{k1['stream_ms']:.3f} ms", flush=True)
+            st.reset_launch_counts()
+            sk.reset_launch_counts()
+            got = rows_matcher(fa, fb)
+            torch.cuda.synchronize()
+            counts = {**{f"step_{k}": v for k, v in st.launches.items()},
+                      "col_potential": sk.launches["kernel"],
+                      "col_potential_plain": sk.launches["plain"]}
+            tier = st.local_step_mode(B // 2, B // 2)
+            d_feat = max(float((g - w).abs().max()) for g, w in zip(got[:4], ref[:4]))
+            d_ent = abs(float(got.entropy) - float(ref.entropy))
+            finite = all(bool(torch.isfinite(t).all()) for t in got[:4])
+            rows_ms = cuda_ms(lambda: rows_matcher(fa, fb), reps=2)
+            single_ms = cuda_ms(lambda: match_two_batch(fa, fb, LAM, ITERS, use_pallas=True),
+                                reps=2)
+            sharded[tier] = dict(batch=B, launches=counts[f"step_{tier}"], counts=counts,
+                                 max_abs_dfeatures=d_feat, dentropy=d_ent,
+                                 row_sharded_matcher_ms=rows_ms, single_device_matcher_ms=single_ms,
+                                 nccl=nccl)
+            print(f"row-sharded matcher, NCCL group of 1, batch {B} (block "
+                  f"({6}, {B // 2}, {B // 2}), tier {tier}): launches {counts}; vs the "
+                  f"single-device matcher max|d features| {d_feat:.3e}, |d entropy| "
+                  f"{d_ent:.3e}; {rows_ms:.3f} ms per match vs {single_ms:.3f} ms on {card}",
+                  flush=True)
+            if counts[f"step_{tier}"] < 1 or counts["step_plain"] != 0:
+                raise AssertionError(f"the row-sharded matcher did not run the {tier} kernel: "
+                                     f"{counts}")
+            if not (finite and d_feat <= 1e-4 and d_ent <= ENT_TOL):
+                raise AssertionError(f"row-sharded matcher disagrees at batch {B}")
+            # the same matcher as one CUDA graph, its all-reduces in it, as a
+            # fused cycle on K ranks holds it: ITERS local steps a match
+            sharded[tier]["captured"] = capture_matcher(
+                rows_matcher, fa, fb, gen, "local_step", ITERS, card,
+                f"6 row-sharded matcher, group of one, batch {B} ({tier} tier)")
+            if B == 2000:
+                # the matrix-parallel matcher, every matrix on rank 0: 6 whole
+                # 1000^2 matrices through the grid tier between its all-gathers,
+                # reduce-scatter and all-reduce, eager and captured
+                reset_all_counts()
+                got = matrix_matcher(fa, fb)
+                torch.cuda.synchronize()
+                counts = train_mod.kernel_launches()
+                check_tier_path(counts, "grid", "the matrix-parallel matcher at batch 2000",
+                                want=6)
+                d_feat = max(float((g - w).abs().max()) for g, w in zip(got[:4], ref[:4]))
+                d_ent = abs(float(got.entropy) - float(ref.entropy))
+                if not (d_feat <= 1e-4 and d_ent <= ENT_TOL):
+                    raise AssertionError(f"the matrix-parallel matcher disagrees: {d_feat}, "
+                                         f"{d_ent}")
+                matrix_b2000 = dict(launches=counts["grid"], max_abs_dfeatures=d_feat,
+                                    dentropy=d_ent, captured=capture_matcher(
+                                        matrix_matcher, fa, fb, gen, "grid_sinkhorn", 6, card,
+                                        "6 matrix-parallel matcher, group of one, batch 2000"))
+            del fa, fb, ref, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return dict(sharded=sharded, single_counts=single_counts, k1=k1,
+                matrix_b2000=matrix_b2000, nccl=nccl)
+
+
 def main() -> int:
     import torch
 
@@ -2645,72 +2983,9 @@ def main() -> int:
                   f"{t['launches_per_step']} device kernel a step; plan {t['plan']}", flush=True)
     del rank_b5000, rank_fused, rank_stream
 
-    # ---- 6. the row-sharded matcher in a one-process NCCL group ----
-    import torch.distributed as dist
-    from otgan_tpu_torch.parallel.matching_sharded import make_sharded_two_batch_matcher
-
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
-                            rank=0, world_size=1)
-    sharded, single_counts = {}, {}
-    try:
-        rows_matcher = make_sharded_two_batch_matcher(None, LAM, ITERS, use_pallas=True)
-        for B in (2000, 8000):
-            fa, fb = unit_features(gen, B, 32768), unit_features(gen, B, 32768)
-            # the single-device matcher: the grid tier at batch 2000 (6 x
-            # 1000^2), kernel 1 at batch 8000 (6 x 4000^2, above the grid
-            # tier's ceiling), counters zeroed just before
-            reset_all_counts()
-            ref = match_two_batch(fa, fb, LAM, ITERS, use_pallas=True)
-            torch.cuda.synchronize()
-            single_counts[B] = train_mod.kernel_launches()
-            want = "grid" if B == 2000 else "col_potential"
-            check_tier_path(single_counts[B], want, f"the single-device matcher at batch {B}",
-                            want=1)
-            if B == 8000:
-                # and at a ragged shape above the ceiling: (2, 2700, 2650)
-                ragged_k1 = torch.stack([cosine_cost(unit_features(gen, 2700, 32768),
-                                                     unit_features(gen, 2650, 32768))
-                                         for _ in range(2)])
-                k1 = time_kernel1(two_batch_costs(fa, fb), ragged_k1, bw, flops, exp_rate)
-                del ragged_k1
-                print(f"kernel 1 (the local-step kernel's v mode) at {k1['shape']} x {ITERS} "
-                      f"iters, the single-device matcher's "
-                      f"costs at batch {B}, on {card}: kernel {k1['ms']:.3f} ms, plain "
-                      f"{k1['plain_ms']:.3f} ms; bound {k1['bound_ms']:.4f} ms by "
-                      f"{k1['bound_by']} at {peak_key} peaks (expf alone "
-                      f"{k1['sfu_floor_ms']:.4f} ms); streaming x every iteration needs "
-                      f"{k1['stream_ms']:.3f} ms", flush=True)
-            st.reset_launch_counts()
-            sk.reset_launch_counts()
-            got = rows_matcher(fa, fb)
-            torch.cuda.synchronize()
-            counts = {**{f"step_{k}": v for k, v in st.launches.items()},
-                      "col_potential": sk.launches["kernel"],
-                      "col_potential_plain": sk.launches["plain"]}
-            tier = st.local_step_mode(B // 2, B // 2)
-            d_feat = max(float((g - w).abs().max()) for g, w in zip(got[:4], ref[:4]))
-            d_ent = abs(float(got.entropy) - float(ref.entropy))
-            finite = all(bool(torch.isfinite(t).all()) for t in got[:4])
-            rows_ms = cuda_ms(lambda: rows_matcher(fa, fb), reps=2)
-            single_ms = cuda_ms(lambda: match_two_batch(fa, fb, LAM, ITERS, use_pallas=True),
-                                reps=2)
-            sharded[tier] = dict(batch=B, launches=counts[f"step_{tier}"], counts=counts,
-                                 max_abs_dfeatures=d_feat, dentropy=d_ent,
-                                 row_sharded_matcher_ms=rows_ms, single_device_matcher_ms=single_ms)
-            print(f"row-sharded matcher, NCCL group of 1, batch {B} (block "
-                  f"({6}, {B // 2}, {B // 2}), tier {tier}): launches {counts}; vs the "
-                  f"single-device matcher max|d features| {d_feat:.3e}, |d entropy| "
-                  f"{d_ent:.3e}; {rows_ms:.3f} ms per match vs {single_ms:.3f} ms on {card}",
-                  flush=True)
-            if counts[f"step_{tier}"] < 1 or counts["step_plain"] != 0:
-                raise AssertionError(f"the row-sharded matcher did not run the {tier} kernel: "
-                                     f"{counts}")
-            if not (finite and d_feat <= 1e-4 and d_ent <= ENT_TOL):
-                raise AssertionError(f"row-sharded matcher disagrees at batch {B}")
-            del fa, fb, ref, got
-            torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
+    # ---- 6. the multi-GPU matchers in a one-process NCCL group ----
+    six = sharded_phase(card, gen, bw, flops, exp_rate, peak_key)
+    sharded, single_counts, k1 = six["sharded"], six["single_counts"], six["k1"]
 
     # ---- 7. several GPUs ----
     multi = multi_gpu_phase(torch.cuda.device_count())
@@ -2769,6 +3044,8 @@ def main() -> int:
                          "per replay: bookkeeping, which replay_device_events confirms on the "
                          "card",
         "launches_densenet": dn["launches"]["grid"],
+        "launches_k_ranks_matrices": multi["grid"]["launches"]["grid"] if multi else None,
+        "matrix_layout_b2000_one_rank_group": six["matrix_b2000"],
         "launches_multihost": [multihost[k]["launches"]["grid"] for k in ("prefetch", "inline")],
         "trace_device_events": traced["grid_device_events"],
         "launches_per_step": launches["grid"] / len(steps),
@@ -2903,6 +3180,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--ranks"]:
         sys.exit(ranks_check())
+    if sys.argv[1:] == ["--fused-ranks"]:
+        sys.exit(fused_ranks_check())
     if sys.argv[1:2] == ["--train"]:
         sys.exit(train_report(sys.argv[2:]))
     sys.exit(main())

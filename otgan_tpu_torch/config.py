@@ -6,9 +6,10 @@ flags (``train.py:14-33``) map one to one; ``--nr_gpu`` aliases
 ``--num_devices``; ``batch_size`` is the GLOBAL batch. ``use_pallas`` means
 "run the Sinkhorn loop in the hand-written CUDA kernel".
 
-``--fused_cycle`` (default on) runs each G:D cycle on one card as one
-CUDA graph, the counterpart of the JAX package's one cycle program
-(``engine.py``). Where a capture runs out of device memory (the DenseNet
+``--fused_cycle`` (default on) runs each G:D cycle on the card as one
+CUDA graph, on one rank or each of K (its NCCL collectives in the graph),
+the counterpart of the JAX package's one cycle program (``engine.py``).
+Where a capture runs out of device memory (the DenseNet
 at batch 5000, ``--grad_accum 4``, fits fused in a fresh process with
 little to spare, ``measure_fused.py``) the engine drops its graphs and runs
 the rest of the run eagerly, as ``--no_fused_cycle`` does, and the trainer

@@ -10,11 +10,13 @@ as eager PyTorch on one device:
 
 The 5:1 schedule (step ``s`` is a critic step when ``s % (n + 1) == 0``) is
 a Python loop in :meth:`Engine.cycle`. Under ``--fused_cycle`` (the default)
-:meth:`Engine.cycle_step` runs the trainer's cycles on one card as CUDA
-graphs (``cycle_graph.py``): eagerly until each kind of step has run once,
-then one capture per schedule, full or an epoch's leftover, all in one
-memory pool, replayed; ``--sinkhorn_tol > 0``, several ranks and the CPU
-run eagerly, and say why (``fused_cycle_reason``). Step functions take the
+:meth:`Engine.cycle_step` runs the trainer's cycles on the card as CUDA
+graphs (``cycle_graph.py``), on one rank or each of K: eagerly until each
+kind of step has run once, then one capture per schedule, full or an
+epoch's leftover, all in one memory pool, replayed; on K ranks each graph
+holds the rank's NCCL collectives too, and the ranks agree on every
+capture before any replays it. ``--sinkhorn_tol > 0`` and the CPU run
+eagerly, and say why (``fused_cycle_reason``). Step functions take the
 latent as an argument, so a test can feed the JAX package's draw; without
 one they draw the family's latent (DCGAN ``U(-1, 1)^100``, toy ``N(0,
 1)^256``, the DenseNet's tuple of four ``U(-1, 1)`` noises) from the state's
@@ -224,23 +226,21 @@ class Engine:
         self._graphs: Dict[Tuple[bool, ...], CycleGraph] = {}
         self._graph_pool = None
         self._eager_kinds: set = set()
+        self.replays = 0  # calls that replayed a graph
         # set while a cycle is captured: --debug_nans checks are deferred here
         self.deferred_checks: Optional[list] = None
 
     def _fused_cycle_plan(self) -> Tuple[int, bool, str]:
         """``(batches a cycle_step call takes, whether they run as a CUDA
-        graph, why not)``. The CPU has no graph but groups the batches as
-        the card does, each cycle run eagerly."""
+        graph, why not)``, the same on every rank. The CPU has no graph but
+        groups the batches as the card does, each cycle run eagerly."""
         cfg = self.cfg
         period = cfg.nr_gen_per_disc + 1
         if not cfg.fused_cycle:
             return 1, False, "--no_fused_cycle"
         if cfg.sinkhorn_tol > 0:
             return 1, False, ("--sinkhorn_tol > 0: the early exit reads the host every "
-                              "iteration, which a graph cannot (ROADMAP queue 2b)")
-        if self.world > 1:
-            return 1, False, (f"{self.world} ranks: NCCL collectives are not captured yet "
-                              "(ROADMAP queue 2b)")
+                              "iteration, which a graph cannot (ROADMAP queue 2 item 7)")
         if self.device.type != "cuda":
             return period, False, "cpu: no CUDA graph; each cycle runs eagerly"
         return period, True, ""
@@ -706,7 +706,16 @@ class Engine:
         it. Under a graph ``--debug_nans`` raises after the replay, so the
         state is then past the whole cycle, the bad step's update included;
         the eager path raises before that update. Not fused, the steps run
-        one by one."""
+        one by one.
+
+        On K ranks every rank captures the same schedule at the same step,
+        its collectives recorded in its graph (a capture runs none). Then,
+        outside any capture, the ranks agree (:meth:`_agree_on_capture`):
+        every rank keeps its graph and replays it, or, where a capture ran
+        out of memory on any rank, every rank drops its graphs and runs
+        eagerly from this call on; any other failed capture raises on every
+        rank. No rank replays a graph whose collectives a peer would not
+        run."""
         if not self.cycle_graphs:
             return self.cycle(state, xs)
         xs = [_as_tensor(x).to(self.device, non_blocking=True) for x in xs]
@@ -720,26 +729,70 @@ class Engine:
             return state, mets
         graph = self._graphs.get(schedule)
         if graph is None:
-            torch.cuda.empty_cache()  # what an epoch's end (samples, eval) left cached
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()  # what an epoch's end (samples, eval) left cached
+            failed: Optional[Exception] = None
+            error = ""
             try:
                 graph = CycleGraph(self, state, xs, self.graph_factory, self._graph_pool)
             except CaptureOutOfMemory as e:
-                graph, error = None, str(e.__cause__ or e)
-            if graph is None:  # out here, the error's frames and the dead graph are gone
+                error = str(e.__cause__ or e)
+            except Exception as e:  # raised below, once the ranks have agreed
+                if self.world == 1:
+                    raise
+                failed = e
+            error = self._agree_on_capture(state.step, schedule, graph, failed, error)
+            if graph is None or error:  # out here, the error's frames and the dead graph are gone
+                graph = None
                 self._run_eagerly(state.step, schedule, error)
                 return self.cycle(state, xs)
             self._graphs[schedule], self._graph_pool = graph, graph.pool
+        self.replays += 1
         return graph.replay(state, xs)
 
+    def _agree_on_capture(self, step: int, schedule: Tuple[bool, ...], graph,
+                          failed: Optional[Exception], error: str) -> str:
+        """After a capture on K ranks: every rank's outcome (0 captured, 1
+        out of memory, 2 failed otherwise), gathered eagerly, outside any
+        capture. Raises on every rank where any rank failed otherwise (a
+        failing rank its own error); returns, where any rank ran out of
+        memory, the error that sends every rank eager, else ``""``. One rank
+        returns its own ``error``."""
+        if self.world == 1:
+            return error
+        code = 0 if graph is not None else 2 if failed is not None else 1
+        codes = all_gather_rows(torch.tensor([code], device=self.device), self.group).tolist()
+        kinds = ":".join("D" if d else "G" for d in schedule)
+        failing = [r for r, c in enumerate(codes) if c == 2]
+        if failing:
+            if failed is not None:
+                raise failed
+            raise RuntimeError(
+                f"rank(s) {failing} of {self.world} failed to capture the schedule {kinds} at "
+                f"step {step} (their errors are in their logs); every rank stops")
+        short = [r for r, c in enumerate(codes) if c == 1]
+        if not short:
+            return ""
+        return f"rank(s) {short} of {self.world}" + (f": {error}" if error else "")
+
+    def drop_graphs(self) -> None:
+        """Free the captured graphs and their pool (a later call captures
+        again). On K ranks a graph holds NCCL work of the group's
+        communicator, and NCCL does not destroy a communicator while such a
+        graph lives (``dist.destroy_process_group`` waits for it): the
+        trainer drops them when its run ends."""
+        self._graphs.clear()
+        self._graph_pool = None
+
     def _run_eagerly(self, step: int, schedule: Tuple[bool, ...], error: str) -> None:
-        """After a capture ran out of memory (``error``): drop every graph
-        and their pool, and run this call and every later one eagerly, as
-        ``--no_fused_cycle`` does; ``fused_cycle_reason`` says why."""
+        """After a capture ran out of memory (``error``; on K ranks, on any
+        of them): drop every graph and their pool, and run this call and
+        every later one eagerly, as ``--no_fused_cycle`` does;
+        ``fused_cycle_reason`` says why."""
         on_card = self.device.type == "cuda"
         reserved = torch.cuda.memory_reserved(self.device) if on_card else 0
         total = torch.cuda.get_device_properties(self.device).total_memory if on_card else 0
-        self._graphs.clear()
-        self._graph_pool = None
+        self.drop_graphs()
         if on_card:
             torch.cuda.synchronize(self.device)
         gc.collect()  # the failed capture's traceback holds its graph in a cycle
@@ -752,9 +805,10 @@ class Engine:
         self.cycle_graphs = self.fused_cycle = False
         kinds = ":".join("D" if d else "G" for d in schedule)
         held = f" ({reserved / 1e9:.2f} GB reserved of {total / 1e9:.2f})" if on_card else ""
+        ranks = " on every rank" if self.world > 1 else ""
         self.fused_cycle_reason = (
             f"capturing the schedule {kinds} at step {step} ran out of device memory{held}; "
-            "from then on every cycle runs eagerly, as under --no_fused_cycle ("
+            f"from then on every cycle runs eagerly{ranks}, as under --no_fused_cycle ("
             f"{error.splitlines()[0][:200] if error else ''})")
 
     # -- sampling (train.py:72-75, x_gens / x_gens_ema) --

@@ -13,7 +13,10 @@ features. Then
   small ``(n_mats, N)`` collectives per iteration and no host sync;
 * ``tol > 0`` stops on the sup-norm movement of the column potential,
   which the all-reduces make bitwise identical on every rank, so every rank
-  stops at the same iteration (one scalar read back per iteration);
+  stops at the same iteration (one scalar read back per iteration). Without
+  it the loop reads nothing back and its collectives are synchronous on the
+  current stream, so a CUDA graph captures the whole match (``--fused_cycle``
+  on K ranks; the tol branch stays eager);
 * matched features: direct products of local rows, and transposed products
   as partial sums reduce-scattered straight to local rows.
 

@@ -25,7 +25,11 @@ the batch along it and replicates the state, the port has
 
 The collectives on row blocks use ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor``: newer PyTorch names them ``*_single`` and warns,
-but the older releases on the GPU machines have only these names.
+but the older releases on the GPU machines have only these names. Every
+collective here is synchronous (``async_op=False``), ordered on the current
+stream, and allocates its output on it, so a CUDA graph of a cycle captures
+the step's collectives as they stand (``--fused_cycle`` on K ranks);
+``replicate`` runs at init, eagerly.
 """
 
 from __future__ import annotations

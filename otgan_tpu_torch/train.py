@@ -8,8 +8,9 @@ CIFAR-10 (or synthetic) batches, or for ``--model toy_mlp`` fresh
 8-Gaussians batches, 78 a epoch (``OTGAN_TOY_EPOCH_BATCHES`` overrides).
 Under ``--fused_cycle`` (the default) it takes the batches a G:D cycle at
 a time, an epoch's leftover as one group (``otgan_tpu/train.py:400-470``):
-on one card, once each kind of step has run eagerly, every group runs as a
-replay of the CUDA graph of its schedule (``engine.py::cycle_step``);
+on the card, on one rank or each of K, once each kind of step has run
+eagerly, every group runs as a replay of the CUDA graph of its schedule
+(``engine.py::cycle_step``);
 ``config.json`` and the first record of ``metrics.jsonl`` say whether it
 took effect (``fused_cycle_effective``) and if not why
 (``fused_cycle_reason``). A capture that runs out of device memory turns
@@ -23,7 +24,8 @@ logged metrics, over the group's steps. So a fused cycle's steps share one
 value, with one readback a cycle, while an unfused step is a group of its
 own and reads back alone; per epoch the
 launches of each Sinkhorn kernel and of its plain version since the first
-step (``launches``, this rank's), and on the card the process's peak
+step (``launches``, this rank's), the calls that replayed a cycle's graph
+(``cycle_replays``), and on the card the process's peak
 device memory allocated and reserved so far (``peak_allocated_gb``,
 ``peak_reserved_gb``).
 
@@ -583,7 +585,7 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                     vals["peak_reserved_gb"] = torch.cuda.max_memory_reserved(engine.device) / 1e9
                 logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
                            entropy=float(torch.stack(entropies).mean()), launches=launches,
-                           **vals)
+                           cycle_replays=engine.replays, **vals)
                 if rank0:
                     # per-epoch samples, raw and EMA (train.py:233-243)
                     for prefix, ema in (("sample", False), ("ema_sample", True)):
@@ -627,6 +629,10 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         print(f"wrote {trace_path(cfg.profile_dir, engine.rank)}", flush=True)
     # every checkpoint reported as saved is on disk before train() returns
     wait_for_pending_saves()
+    # the engine may outlive this call in a reference cycle (the auto
+    # layout's matcher holds it); its graphs must not, or the process group
+    # cannot be destroyed
+    engine.drop_graphs()
     return TrainResult(state, steps)
 
 

@@ -645,3 +645,66 @@ def test_failed_capture_raises(cuda_device):
         eng.cycle_step(state, xs[3:6])
     torch.cuda.synchronize()
     assert state.step == step and sinkhorn_resident_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,B,kernel,events",
+                         [("rows", 64, "local_step", 30), ("rows", 2100, "local_step", 30),
+                          ("matrices", 1100, "grid_sinkhorn", 6)],
+                         ids=["rows-fused-tier", "rows-stream-tier", "matrices-grid-tier"])
+def test_group_matcher_capture_replays_eager(cuda_device, layout, B, kernel, events):
+    """A matcher of a process group (one-process NCCL group) captured into
+    one CUDA graph, its all-gathers, all-reduces and reduce-scatter
+    included, as a fused cycle on K ranks holds it: replayed on new features
+    it gives the eager call's outputs bit for bit, and a profiled replay
+    launches the matcher's kernel (30 local steps a row-sharded match, 6
+    grid launches a matrix-parallel one): the row blocks (6, 32, 32) of the
+    fused tier and (6, 1050, 1050) of the stream tier, and 6 whole 550^2
+    matrices of the grid tier (``chip_smoke.py`` phase 6 at full size)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from otgan_tpu_torch.cycle_graph import TorchGraph
+    from otgan_tpu_torch.parallel import matching_matrix, matching_sharded
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        make = (matching_sharded.make_sharded_two_batch_matcher if layout == "rows"
+                else matching_matrix.make_matrix_parallel_two_batch_matcher)
+        matcher = make(None, 500.0, 30, use_pallas=True)
+        if layout == "rows":
+            tier = sinkhorn_step_cuda.local_step_mode(B // 2, B // 2)
+            assert tier == ("fused" if B == 64 else "stream")
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+        def features():
+            f = torch.randn((B, 256), generator=gen, device=cuda_device)
+            return f / f.norm(dim=1, keepdim=True)
+
+        static = [features(), features()]
+        matcher(*static)  # the eager warm-up: the communicator, the kernels' build
+        graph = TorchGraph()
+        with graph.capture():
+            out = matcher(*static)
+        new = [features(), features()]
+        want = [t.clone() for t in matcher(*new)]
+        for s, t in zip(static, new):
+            s.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(out, want):
+            assert torch.equal(o, w)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert sum(kernel in n for n in names) == events, sorted(set(names))[:20]
+    finally:
+        dist.destroy_process_group()

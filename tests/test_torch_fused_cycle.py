@@ -47,6 +47,7 @@ from otgan_tpu_torch.data.toy import sample_8gaussians
 from otgan_tpu_torch.engine import Engine
 from otgan_tpu_torch.nn import optim
 from otgan_tpu_torch.utils import checkpoint as ckpt
+from tests.test_torch_parallel_worker import StubGraph
 
 
 @pytest.fixture(autouse=True)
@@ -77,26 +78,6 @@ def _batches(rng, n):
 
 def _named(state):
     return {k: t.detach().clone() for k, t in ckpt._named_tensors(state)}
-
-
-class StubGraph:
-    """A graph without a card: capture runs the block (on the CPU, for
-    real), replay does nothing; its pool is the one it was given, else a
-    token of its own."""
-
-    def register_generator(self, gen):
-        self.gen = gen
-
-    @contextlib.contextmanager
-    def capture(self, pool=None):
-        self.given_pool = pool
-        yield
-
-    def pool(self):
-        return self.given_pool if self.given_pool is not None else ("pool", id(self))
-
-    def replay(self):
-        pass
 
 
 @pytest.mark.parametrize("freeze", [0, 4], ids=["5-2-schedule", "critic-frozen"])
@@ -434,3 +415,22 @@ def test_trainer_logs_the_switch_to_eager(tmp_path, monkeypatch):
     assert len(switched) == 1 and switched[0]["fused_cycle_effective"] is False
     assert "ran out of device memory" in switched[0]["fused_cycle_reason"]
     assert _step_records(recs) == _step_records(plain) and len(_step_records(recs)) == 8
+
+
+def test_trainer_drops_its_graphs_at_the_end(tmp_path, monkeypatch):
+    """The trainer's engine (stub graphs, so its calls capture and replay)
+    holds no graph once the run ends, though the engine itself may live on:
+    on K ranks a live graph holds NCCL work, and NCCL will not destroy the
+    group's communicator while it does."""
+    engines = []
+
+    class StubEngine(port_train.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.cycle_graphs, self.graph_factory = True, StubGraph
+            engines.append(self)
+
+    monkeypatch.setattr(port_train, "Engine", StubEngine)
+    _run_trainer(tmp_path, "drop", ["--max_epochs", "2"], monkeypatch)
+    (eng,) = engines
+    assert eng.replays >= 2 and eng._graphs == {} and eng._graph_pool is None

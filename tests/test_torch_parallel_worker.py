@@ -12,6 +12,7 @@ new world. This module imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import queue
@@ -291,3 +292,154 @@ def multihost_engine_steps(rank, size, cfg, x_init, xs, ranks_per_process):
         return out
     finally:
         del os.environ["LOCAL_WORLD_SIZE"]
+
+
+# ---- --fused_cycle on K ranks (tests/test_torch_fused_cycle_ranks.py) ----
+
+class StubGraph:
+    """A graph without a card: capture runs the block (on the CPU, for
+    real), replay does nothing; its pool is the one it was given, else a
+    token of its own."""
+
+    def register_generator(self, gen):
+        self.gen = gen
+
+    @contextlib.contextmanager
+    def capture(self, pool=None):
+        self.given_pool = pool
+        yield
+
+    def pool(self):
+        return self.given_pool if self.given_pool is not None else ("pool", id(self))
+
+    def replay(self):
+        pass
+
+
+class EmulatedCycleGraph:
+    """``cycle_graph.CycleGraph`` as the engine sees it, without a card: its
+    capture runs none of the cycle (a CUDA graph's capture executes none
+    of its work, collectives included) and its replay runs the cycle once,
+    eagerly. ``graph_factory`` is called at capture, where a test makes it
+    fail."""
+
+    def __init__(self, engine, state, xs, graph_factory, pool=None):
+        graph_factory()
+        self.engine = engine
+        self.pool = pool if pool is not None else ("pool", id(self))
+
+    def replay(self, state, xs):
+        return self.engine.cycle(state, xs)
+
+
+def _graph_factory(rank, fail, emulated: bool):
+    """Graphs for one engine: :class:`StubGraph`s, of which capture number
+    ``fail[1]`` (0-based) on rank ``fail[0]`` fails, ``fail[2]`` saying how:
+    ``"oom"`` out of device memory, ``"error"`` otherwise. An emulated
+    capture fails at its start; a stub's at its end, after its cycle ran,
+    as ``capture_end`` fails on the card."""
+    from otgan_tpu_torch.cycle_graph import CaptureOutOfMemory
+
+    made = []
+
+    def error(how):
+        if how == "oom":
+            return torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB")
+        return RuntimeError("CUDA error: operation not permitted when stream is capturing")
+
+    class FailingStub(StubGraph):
+        @contextlib.contextmanager
+        def capture(self, pool=None):
+            with super().capture(pool):
+                yield
+            raise error(fail[2])
+
+    def factory():
+        i = len(made)
+        made.append(i)
+        failing = fail is not None and fail[0] == rank and fail[1] == i
+        if emulated:
+            if failing:
+                e = error(fail[2])
+                if fail[2] == "oom":
+                    raise CaptureOutOfMemory(f"capturing a cycle ran out of memory: {e}") from e
+                raise e
+            return None
+        return FailingStub() if failing else StubGraph()
+
+    return factory
+
+
+def fused_cycle_ranks(rank, size, cfg, x_init, xs, calls, graphs="cpu", fail=None):
+    """The engine of ``cfg`` on this rank, handed the global batches ``xs``
+    through ``cycle_step`` in calls of ``calls`` batches each. ``graphs``:
+    ``"cpu"`` the CPU's own path (batches grouped, each cycle eager);
+    ``"stub"`` captures through ``CycleGraph`` with :class:`StubGraph`;
+    ``"emulated"`` through :class:`EmulatedCycleGraph`; ``fail`` as in
+    :func:`_graph_factory`. A raised error ends the calls. Returns every
+    step's (dist, entropy), the engine's fused flags and graphs, this
+    rank's launch counts and state step, the error, whether the parameters
+    agree on every rank, and rank 0's state (``named_arrays``)."""
+    from otgan_tpu_torch import engine as engine_mod
+    from otgan_tpu_torch import train
+    from otgan_tpu_torch.config import TrainConfig
+
+    eng = engine_mod.Engine(TrainConfig(**cfg), device="cpu")
+    state, _ = eng.init_state(0, x_init)
+    if graphs != "cpu":
+        eng.cycle_graphs, eng.graph_factory = True, _graph_factory(rank, fail, graphs == "emulated")
+    real = engine_mod.CycleGraph
+    if graphs == "emulated":
+        engine_mod.CycleGraph = EmulatedCycleGraph
+    steps, error, at = [], None, []
+    try:
+        i = 0
+        for n in calls:
+            state, mets = eng.cycle_step(state, [torch.from_numpy(x) for x in xs[i:i + n]])
+            steps += [(float(m.dist), float(m.entropy)) for m in mets]
+            at.append((state.step, train.kernel_launches()))
+            i += n
+    except Exception as e:  # the test holds every rank to raising
+        error = f"{type(e).__name__}: {e}"
+    finally:
+        engine_mod.CycleGraph = real
+    same = _same_on_every_rank([*state.gen.parameters(), *state.disc.parameters()])
+    return dict(steps=steps, error=error, after_calls=at, same_on_every_rank=same,
+                fused=(eng.cycle_graphs, eng.fused_cycle, eng.fused_cycle_reason),
+                graphs=len(eng._graphs), state=named_arrays(state) if rank == 0 else None)
+
+
+def fused_cycle_from_jax(rank, size, cfg, state_path, x_init, xs, zs, captured):
+    """One cycle of the engine of ``cfg`` on the batches ``xs`` from the JAX
+    state in ``state_path`` (as :func:`engine_step`), its latents the global
+    ``zs`` of the JAX cycle: captured (``StubGraph``, each kind of step
+    taken as warmed up) or, without ``captured``, step by step. The steps'
+    dist and entropy, rank 0's parameters, whether they agree on every
+    rank."""
+    import pickle
+
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.convert import state_from_jax, unflatten_params
+    from otgan_tpu_torch.engine import Engine
+
+    torch.set_num_threads(2)
+    eng = Engine(TrainConfig(**cfg), device="cpu")
+    state, _ = eng.init_state(0, x_init)
+    with open(state_path, "rb") as f:
+        state = state_from_jax(eng, state, pickle.load(f))
+    draws = iter(zs)
+    eng.latents = lambda batch, generator=None: torch.from_numpy(next(draws))
+    xs = [torch.from_numpy(x) for x in xs]
+    if captured:
+        eng.cycle_graphs, eng.graph_factory = True, StubGraph
+        eng._eager_kinds = {True, False}
+        state, mets = eng.cycle_step(state, xs)
+        if len(eng._graphs) != 1:
+            raise RuntimeError(f"the cycle was not captured: {len(eng._graphs)} graphs")
+    else:
+        state, mets = eng.cycle(state, xs)
+    params = [*state.gen.parameters(), *state.disc.parameters()]
+    return dict(steps=[(float(m.dist), float(m.entropy)) for m in mets],
+                same_on_every_rank=_same_on_every_rank(params),
+                gen=unflatten_params(dict(state.gen.named_parameters())) if rank == 0 else None,
+                disc=unflatten_params(dict(state.disc.named_parameters())) if rank == 0 else None)
