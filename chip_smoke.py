@@ -30,12 +30,21 @@ Run from the root of a checkout, it
    to 0 just before and read just after: the grid kernel must have
    launched once a step and nothing else, no plain version;
 4b. runs the same cycle again with ``--profile_dir``, ``--debug_nans`` and
-   ``--no_fused_cycle`` (the spans of a step vanish inside a graph's
-   replay), as its own process: it exits 0, its Chrome trace holds 6 device events of the
+   ``--no_fused_cycle`` (its host spans of a step and its phases exist
+   only outside a graph's replay), as its own process (``chip_smoke.py
+   --marks``): it exits 0, its Chrome trace holds 6 device events of the
    grid kernel and every step and phase span (a trace with no device event
    is taken again, at most three times); prints the ten device kernels
-   with the most time and the device time of the kernels launched in each
-   phase span (``features``, ``match``, ``loss_backward``, ``update``);
+   with the most time and the device time of the kernels between each
+   phase's marks (``features``, ``match``, ``loss_backward``, ``update``);
+   then once more under ``--profile_dir`` alone, fused (the first epoch
+   eager, the second captured and replayed, the third replayed). In both
+   runs the engine's phase marks (``csrc/phase_marks.cu``) must hold: the
+   tally counts exactly one a step in each of the five slots of its kind
+   (1 critic and 5 generator steps), the trace holds the same marks, each
+   slot's tally agrees with the interval between its marks in the trace
+   within 2% or 20 us, and under 1% of the kernels' time lies outside the
+   four phases' marks (``phase_device_ms['other']``);
 4c. drives the DenseNet path, ``--preset train_py --model densenet
    --grad_accum 4 --no_fused_cycle`` (16 layers a block, 16 filters,
    features d 7296; microbatches of 1250, from ``measure_densenet.py``'s
@@ -1479,50 +1488,126 @@ def jax_resume_phase(card: str, b256_dir: str) -> dict:
     return res
 
 
-def trace_phase(card: str) -> dict:
-    """One 5:1 cycle of ``--preset train_py`` under ``--profile_dir`` and
-    ``--debug_nans``, run as its own process (the CLI, as a user runs it; a
-    profile leaves this process's later profiles without device events).
-    The trace is read back (``utils/tracing.py``), and the run is taken
-    again when the trace holds no device event; the launches are the ones
-    rank 0 logs to ``metrics.jsonl``."""
-    from otgan_tpu_torch.utils.tracing import PHASE_SPANS, summarize, trace_path
+# the phase marks' tally against its marks in a trace (the card test's
+# tolerance), and the share of the kernels' time outside the four phases
+MARK_REL, MARK_ABS_MS, OTHER_SHARE = 0.02, 0.02, 0.01
 
-    run_dir = os.path.join(REPO, "runs", "chip_smoke_trace")
+
+def marks_report(argv) -> int:
+    """``chip_smoke.py --marks ARGS``: ``otgan_tpu_torch.train ARGS`` in this
+    process, then one line ``marks_report: {...}``: the engine's phase-mark
+    tally on this card, all of it (``device_ms``) and that of the calls made
+    under the profiler (``profiled_device_ms``)."""
+    import torch
+    from otgan_tpu_torch import train as train_mod
+    from otgan_tpu_torch.utils import tracing
+
+    train_mod.main(list(argv))
+    torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print("marks_report: " + json.dumps({"device_ms": tracing.device_ms(dev),
+                                         "profiled_device_ms": tracing.profiled_device_ms(dev)}),
+          flush=True)
+    return 0
+
+
+def traced_cycle(run_dir: str, flags: list) -> tuple:
+    """One 5:1 cycle of ``--preset train_py`` (3 epochs of 2 batches) under
+    ``--profile_dir`` and ``flags``, as its own process (``chip_smoke.py
+    --marks``), taken again when its trace holds no device event (at most
+    three times): the trace's summary, the tally's report, the run's
+    ``metrics.jsonl`` records, the attempts and the trace's path."""
+    from otgan_tpu_torch.utils.tracing import summarize, trace_path
+
     trace_dir = os.path.join(run_dir, "trace")
     for attempt in range(3):
         shutil.rmtree(run_dir, ignore_errors=True)
         out = subprocess.run(
-            [sys.executable, "-m", "otgan_tpu_torch.train", "--preset", "train_py",
-             "--synthetic_data", "--synthetic_size", "10000", "--max_epochs", "3",
-             "--log_every_steps", "1", "--save_dir", run_dir, "--profile_dir", trace_dir,
-             "--debug_nans", "--no_fused_cycle"], cwd=REPO, capture_output=True, text=True, timeout=600)
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--marks", "--preset",
+             "train_py", "--synthetic_data", "--synthetic_size", "10000", "--max_epochs", "3",
+             "--log_every_steps", "1", "--save_dir", run_dir, "--profile_dir", trace_dir, *flags],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
         if out.returncode != 0:
-            raise AssertionError(f"the traced cycle failed (rc {out.returncode}):\n"
+            raise AssertionError(f"the traced cycle {flags} failed (rc {out.returncode}):\n"
                                  f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
         path = trace_path(trace_dir)
         summary = summarize(path)
         if summary["kernels"]:
             break
+    report = next(l for l in out.stdout.splitlines() if l.startswith("marks_report: "))
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
+        records = [json.loads(r) for r in f]
+    return summary, json.loads(report[len("marks_report: "):]), records, attempt + 1, path
+
+
+def hold_marks(summary: dict, report: dict, kinds: list, what: str, card: str) -> dict:
+    """The engine's phase marks in one traced run whose steps were of
+    ``kinds``: the tally counts one a step in each of the five slots of its
+    kind, every one of them under the profiler; the trace holds as many
+    marks; each slot's tally agrees with the interval between its marks in
+    the trace within MARK_REL or MARK_ABS_MS; the kernels outside the four
+    phases' marks take under OTHER_SHARE of the kernels' time."""
+    from otgan_tpu_torch.utils.tracing import KINDS, SLOTS
+
+    want = {kind: dict.fromkeys(SLOTS, kinds.count(kind)) for kind in KINDS}
+    counts = {key: {kind: {slot: v["count"] for slot, v in slots.items()}
+                    for kind, slots in report[key].items()}
+              for key in ("device_ms", "profiled_device_ms")}
+    # kind.slot -> [marks in the trace, their ms in the trace, the tally's ms]
+    held = {f"{kind}.{slot}": summary["marks"].get(f"{kind}.{slot}", [0, 0.0]) + [v["ms"]]
+            for kind, slots in report["profiled_device_ms"].items() for slot, v in slots.items()}
+    other = summary["phase_device_ms"]["other"] / summary["device_ms"]
+    res = dict(tally_counts=counts["profiled_device_ms"], trace_vs_tally=held,
+               other_ms=summary["phase_device_ms"]["other"], kernel_ms=summary["device_ms"],
+               other_share=other)
+    print(f"phase marks of {what} on {card}: " + json.dumps(res), flush=True)
+    if counts["device_ms"] != want or counts["profiled_device_ms"] != want:
+        raise AssertionError(f"{what}: the tally counts {counts}, not one a step in each slot "
+                             f"({want})")
+    bad = {key: (n, ms, tally) for key, (n, ms, tally) in held.items()
+           if n != want[key.split(".")[0]][key.split(".")[1]]
+           or abs(ms - tally) > max(MARK_REL * ms, MARK_ABS_MS)}
+    if bad:
+        raise AssertionError(f"{what}: the trace's marks (count, ms) disagree with the tally's "
+                             f"ms: {bad}")
+    if not other < OTHER_SHARE:
+        raise AssertionError(f"{what}: {100 * other:.3f}% of the kernels' time lies outside the "
+                             f"four phases' marks")
+    return res
+
+
+def trace_phase(card: str) -> dict:
+    """One 5:1 cycle of ``--preset train_py`` under ``--profile_dir`` and
+    ``--debug_nans``, unfused, then one under ``--profile_dir`` alone, fused,
+    each run as its own process (the CLI, as a user runs it, through
+    ``chip_smoke.py --marks``; a profile leaves this process's later
+    profiles without device events). Each trace is read back
+    (``utils/tracing.py``) and the engine's phase marks held against it
+    (:func:`hold_marks`); the launches are the ones rank 0 logs to
+    ``metrics.jsonl``."""
+    from otgan_tpu_torch.utils.tracing import PHASE_SPANS
+
+    run_dir = os.path.join(REPO, "runs", "chip_smoke_trace")
+    summary, report, records, attempts, path = traced_cycle(
+        run_dir, ["--debug_nans", "--no_fused_cycle"])
     steps = [r for r in records if "kind" in r]
     launches = [r for r in records if "epoch" in r][-1]["launches"]
     grid_events = sum(n for name, (n, _) in summary["kernels"].items() if "grid_sinkhorn" in name)
     spans = summary["spans"]
-    res = dict(attempts=attempt + 1, trace_bytes=os.path.getsize(path), grid_device_events=grid_events,
+    res = dict(attempts=attempts, trace_bytes=os.path.getsize(path), grid_device_events=grid_events,
                launches=launches, steps_ms=[r["step_ms"] for r in steps],
                spans_host_ms=spans, phase_device_ms=summary["phase_device_ms"],
                device_ms=summary["device_ms"], top=summary["top"])
     print(f"trace of one 5:1 cycle at batch {BATCH} (--profile_dir, --debug_nans) on {card}: "
           f"{res['trace_bytes']} bytes, {grid_events} grid kernel events, device time "
-          f"{summary['device_ms']:.1f} ms; device ms of the kernels launched in each phase span "
+          f"{summary['device_ms']:.1f} ms; device ms of the kernels between each phase's marks "
           + json.dumps(summary["phase_device_ms"]) + "; host ms (count) of each span "
           + json.dumps(spans) + f"; step ms {res['steps_ms']}", flush=True)
     for name, count, ms in summary["top"]:
         print(f"  trace top device kernel: {ms:10.3f} ms {count:6d}x {name[:120]}", flush=True)
-    if [r["kind"] for r in steps] != ["disc"] + ["gen"] * 5:
-        raise AssertionError(f"expected one 5:1 cycle, got {[r['kind'] for r in steps]}")
+    kinds = [r["kind"] for r in steps]
+    if kinds != ["disc"] + ["gen"] * 5:
+        raise AssertionError(f"expected one 5:1 cycle, got {kinds}")
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError("non-finite dist or entropy in the traced cycle")
     check_tier_path(launches, "grid", "the traced cycle (rank 0's metrics.jsonl)", want=6)
@@ -1531,6 +1616,22 @@ def trace_phase(card: str) -> dict:
     if spans["disc_step"][0] != 1 or spans["gen_step"][0] != 5 or any(
             spans[name][0] < 6 for name in PHASE_SPANS):
         raise AssertionError(f"the trace lacks step or phase spans: {spans}")
+    res["marks"] = hold_marks(summary, report, kinds, "the traced cycle, unfused", card)
+
+    summary, report, records, attempts, _ = traced_cycle(
+        os.path.join(REPO, "runs", "chip_smoke_trace_fused"), [])
+    kinds = [r["kind"] for r in records if "kind" in r]
+    epochs = [r for r in records if "epoch" in r]
+    fused = dict(attempts=attempts, cycle_replays=epochs[-1]["cycle_replays"],
+                 phase_device_ms=summary["phase_device_ms"], device_ms=summary["device_ms"],
+                 epoch_device_ms=[r.get("device_ms") for r in epochs])
+    print(f"trace of one fused 5:1 cycle at batch {BATCH} (--profile_dir; epochs eager, "
+          f"captured, replayed) on {card}: " + json.dumps(fused), flush=True)
+    if kinds != ["disc"] + ["gen"] * 5 or fused["cycle_replays"] != 2:
+        raise AssertionError(f"expected one 5:1 cycle, two of its calls replayed: {kinds}, "
+                             f"{fused['cycle_replays']} replays")
+    fused["marks"] = hold_marks(summary, report, kinds, "the traced cycle, fused", card)
+    res["fused"] = fused
     return res
 
 
@@ -3184,4 +3285,6 @@ if __name__ == "__main__":
         sys.exit(fused_ranks_check())
     if sys.argv[1:2] == ["--train"]:
         sys.exit(train_report(sys.argv[2:]))
+    if sys.argv[1:2] == ["--marks"]:
+        sys.exit(marks_report(sys.argv[2:]))
     sys.exit(main())

@@ -15,7 +15,10 @@ What a capture must not lose:
   flags after each replay and raises at the first bad one, in the eager
   order;
 * the launch counters are Python and count at capture time only: the
-  capture's delta is taken back and added once per replay;
+  capture's delta is taken back and added once per replay. The phase marks
+  (``utils/tracing.py``) are kernels on the card, recorded at capture and
+  run by each replay; on the CPU (a test's stub graph, whose capture runs
+  the cycle) their host tally is treated as the counters are;
 * the capture moves no host state: ``state.step`` and the counters are
   put back after it, and the caller replays at once for the same batches.
 
@@ -47,6 +50,7 @@ from otgan_tpu_torch.ops import (
     sinkhorn_resident_cuda,
     sinkhorn_step_cuda,
 )
+from otgan_tpu_torch.utils import tracing
 
 # every kernel's launch counter (dicts the wrappers add to at launch)
 COUNTERS = (sinkhorn_cuda.launches, sinkhorn_grid_cuda.launches,
@@ -142,6 +146,7 @@ class CycleGraph:
         rng_state = state.rng.get_state()
         step0 = state.step
         before = [dict(c) for c in COUNTERS]
+        marks = tracing.host_marks()
         checks: List[Tuple[int, str, torch.Tensor]] = []
         engine.deferred_checks = checks
         try:
@@ -167,6 +172,7 @@ class CycleGraph:
             after = [dict(c) for c in COUNTERS]
             for c, b in zip(COUNTERS, before):
                 c.update(b)
+            self.marks = tracing.take_back(marks)
             state.step = step0
         self.pool = self.graph.pool()
         self.delta = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, before)]
@@ -184,6 +190,7 @@ class CycleGraph:
         for c, d in zip(COUNTERS, self.delta):
             for k, n in d.items():
                 c[k] = c.get(k, 0) + n
+        tracing.add_marks(self.marks)
         step0 = state.step
         state.step += self.n
         if self.flags is not None:

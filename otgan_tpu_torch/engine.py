@@ -37,9 +37,12 @@ the gradients are the full-batch step's. Only the (B, d) features, the
 critic step's fake images and one microbatch's activations are live at a
 time; the batch stays uint8 on the device until its microbatch is ingested.
 
-Each step is named for ``torch.profiler`` (``--profile_dir``): ``gen_step``
-or ``disc_step``, inside them ``features``, ``match``, ``loss_backward`` and
-``update``, and ``microbatch`` under accumulation. ``--debug_nans`` checks
+Each step is named (``utils/tracing.py::phase``): ``gen_step`` or
+``disc_step``, inside them ``features``, ``match``, ``loss_backward`` and
+``update``, each a host span for ``torch.profiler`` (``--profile_dir``) and
+a pair of marks on the device that a captured cycle keeps and every replay
+runs, so ``tracing.device_ms`` counts the device time of each phase of each
+kind of step, eager or replayed. ``--debug_nans`` checks
 the loss, the gradients, ``dist`` and ``entropy`` of every step before its
 update and raises ``FloatingPointError`` at the first non-finite one (in a
 captured cycle, from the graph's flags after the replay); without it a
@@ -80,7 +83,6 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from otgan_tpu_torch.config import TrainConfig, check_supported
 from otgan_tpu_torch.cycle_graph import (
@@ -111,6 +113,7 @@ from otgan_tpu_torch.parallel.mesh import (
     rank_and_size,
     replicate,
 )
+from otgan_tpu_torch.utils import tracing
 
 
 def resolve_device(device=None) -> torch.device:
@@ -229,6 +232,7 @@ class Engine:
         self.replays = 0  # calls that replayed a graph
         # set while a cycle is captured: --debug_nans checks are deferred here
         self.deferred_checks: Optional[list] = None
+        tracing.tally(self.device)  # the marks' accumulators, before any capture
 
     def _fused_cycle_plan(self) -> Tuple[int, bool, str]:
         """``(batches a cycle_step call takes, whether they run as a CUDA
@@ -543,7 +547,7 @@ class Engine:
                                entropy=m.entropy)
         module = state.gen if kind == "gen" else state.disc
         params = dict(module.named_parameters())
-        with record_function("update"):
+        with tracing.phase("update"):
             if kind == "gen":
                 self.opt_update(params, dict(zip(params, grads)), state.gen_opt,
                                 cfg.learning_rate_gen)
@@ -559,7 +563,7 @@ class Engine:
         """One generator step on this process's batch ``x_data`` (the global
         batch without ``--multihost``) and the global latents ``z``, else
         drawn at the global batch: each rank keeps its rows."""
-        with record_function("gen_step"):
+        with tracing.phase("gen_step", self.device):
             z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
             x = self._local_data(x_data)
             grad_fn = self._gen_grads_accum if self.cfg.grad_accum > 1 else self._gen_grads
@@ -572,14 +576,14 @@ class Engine:
         # --remat its segments recompute there and must record what the
         # frozen forward recorded
         with _frozen(state.disc):
-            with record_function("features"):
+            with tracing.phase("features"):
                 with torch.no_grad():
                     f_dat = state.disc(self.ingest(x))
                 f_gen = state.disc(state.gen(z))
-            with record_function("match"):
+            with tracing.phase("match"):
                 m = self._matcher(f_gen, f_dat)
                 distance = self._distance(f_gen.detach(), f_dat, m)
-            with record_function("loss_backward"):
+            with tracing.phase("loss_backward"):
                 loss = med_generator_loss(f_gen, m)
                 grads = self._sum_grads(torch.autograd.grad(loss, params))
         return grads, loss.detach(), distance, m
@@ -589,21 +593,20 @@ class Engine:
         params = list(state.gen.parameters())
         mbs = self._microbatches(len(x))
         x = _as_tensor(x).to(self.device, non_blocking=True)  # stays uint8 here
-        with record_function("features"), torch.no_grad():
+        with tracing.phase("features"), torch.no_grad():
             f_gen, f_dat = [], []
             for sl in mbs:
-                with record_function("microbatch"):
-                    f_gen.append(state.disc(state.gen(map_latent(lambda t: t[sl], z))))
-                    f_dat.append(state.disc(self.ingest(x[sl])))
+                f_gen.append(state.disc(state.gen(map_latent(lambda t: t[sl], z))))
+                f_dat.append(state.disc(self.ingest(x[sl])))
             f_gen, f_dat = torch.cat(f_gen), torch.cat(f_dat)
-        with record_function("match"):
+        with tracing.phase("match"):
             m = self._matcher(f_gen, f_dat)
             distance = self._distance(f_gen, f_dat, m)
         del f_gen, f_dat
         grads, loss = None, 0.0
-        with record_function("loss_backward"):
+        with tracing.phase("loss_backward"):
             for sl in mbs:
-                with record_function("microbatch"), _frozen(state.disc):
+                with _frozen(state.disc):
                     f = state.disc(state.gen(map_latent(lambda t: t[sl], z)))
                     mb_loss = med_generator_loss(f, _rows(m, sl))
                     g = torch.autograd.grad(mb_loss, params)
@@ -615,7 +618,7 @@ class Engine:
     # -- critic update: ascent via negative lr (train.py:115-130,143) --
     def disc_step(self, state: TrainState, x_data, z=None) -> Tuple[TrainState, StepMetrics]:
         """One critic step, with the batches of :meth:`gen_step`."""
-        with record_function("disc_step"):
+        with tracing.phase("disc_step", self.device):
             z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
             x = self._local_data(x_data)
             grad_fn = self._disc_grads_accum if self.cfg.grad_accum > 1 else self._disc_grads
@@ -624,14 +627,14 @@ class Engine:
 
     def _disc_grads(self, state: TrainState, x, z):
         params = list(state.disc.parameters())
-        with record_function("features"):
+        with tracing.phase("features"):
             x_fake = self.sample(state, z, ema=self.cfg.train_disc_against_ema)
             f_fake = state.disc(x_fake)
             f_dat = state.disc(self.ingest(x))
-        with record_function("match"):
+        with tracing.phase("match"):
             m = self._matcher(f_fake, f_dat)
             distance = self._distance(f_fake.detach(), f_dat.detach(), m)
-        with record_function("loss_backward"):
+        with tracing.phase("loss_backward"):
             loss = med_discriminator_loss(f_fake, f_dat, m)
             grads = self._sum_grads(torch.autograd.grad(loss, params))
         return grads, loss.detach(), distance, m
@@ -643,28 +646,26 @@ class Engine:
         params = list(state.disc.parameters())
         mbs = self._microbatches(len(x))
         x = _as_tensor(x).to(self.device, non_blocking=True)
-        with record_function("features"), torch.no_grad():
+        with tracing.phase("features"), torch.no_grad():
             x_fake, f_fake, f_dat = [], [], []
             for sl in mbs:
-                with record_function("microbatch"):
-                    x_fake.append(self.sample(state, map_latent(lambda t: t[sl], z),
-                                              ema=self.cfg.train_disc_against_ema))
-                    f_fake.append(state.disc(x_fake[-1]))
-                    f_dat.append(state.disc(self.ingest(x[sl])))
+                x_fake.append(self.sample(state, map_latent(lambda t: t[sl], z),
+                                          ema=self.cfg.train_disc_against_ema))
+                f_fake.append(state.disc(x_fake[-1]))
+                f_dat.append(state.disc(self.ingest(x[sl])))
             f_fake, f_dat = torch.cat(f_fake), torch.cat(f_dat)
-        with record_function("match"):
+        with tracing.phase("match"):
             m = self._matcher(f_fake, f_dat)
             distance = self._distance(f_fake, f_dat, m)
         del f_fake, f_dat
         grads, loss = None, 0.0
-        with record_function("loss_backward"):
+        with tracing.phase("loss_backward"):
             for sl, xf in zip(mbs, x_fake):
-                with record_function("microbatch"):
-                    mb_loss = med_discriminator_loss(state.disc(xf),
-                                                     state.disc(self.ingest(x[sl])), _rows(m, sl))
-                    g = torch.autograd.grad(mb_loss, params)
-                    grads = _accumulate(grads, g)
-                    loss = loss + mb_loss.detach()
+                mb_loss = med_discriminator_loss(state.disc(xf),
+                                                 state.disc(self.ingest(x[sl])), _rows(m, sl))
+                g = torch.autograd.grad(mb_loss, params)
+                grads = _accumulate(grads, g)
+                loss = loss + mb_loss.detach()
             grads = self._sum_grads(grads)
         return grads, loss, distance, m
 
@@ -716,6 +717,7 @@ class Engine:
         eagerly from this call on; any other failed capture raises on every
         rank. No rank replays a graph whose collectives a peer would not
         run."""
+        tracing.note_call(self.device)
         if not self.cycle_graphs:
             return self.cycle(state, xs)
         xs = [_as_tensor(x).to(self.device, non_blocking=True) for x in xs]

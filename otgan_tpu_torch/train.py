@@ -34,10 +34,15 @@ After each epoch it writes 100 samples of the generator and of its EMA
 ``sample<e>.npy`` and ``ema_sample<e>.npy`` for toy points), drawn from
 latents seeded by the epoch. ``--profile_dir D`` traces the epochs with
 ``torch.profiler`` into ``D/trace_rank<r>.json`` (``utils/tracing.py``), also
-when the run raises; ``--debug_nans`` makes every step raise
-``FloatingPointError`` at its first non-finite loss, gradient, distance or
-entropy (``engine.py``). Every ``--save_every_epochs`` epochs (not the
-first epoch of a run) it writes the full train state,
+when the run raises; the loop names its parts with host spans
+(``data_wait``, ``dispatch``, ``epoch_end`` and inside it ``readback``,
+``samples``, ``eval``, ``checkpoint``), and each epoch's record carries the
+device ms a step of each kind and phase from the engine's marks
+(``device_ms``, read after the epoch's readback, so without a new wait);
+``--debug_nans`` makes every step raise ``FloatingPointError`` at its first
+non-finite loss, gradient, distance or entropy (``engine.py``). Every
+``--save_every_epochs`` epochs (not the first epoch of a run) it writes the
+full train state,
 ``otgan_state-<epoch>.npz`` (``utils/checkpoint.py``; retention, slot dtype
 and background writes from the config), or under ``--checkpoint_backend
 orbax`` the step directory ``orbax/<epoch>`` written by every rank with
@@ -113,6 +118,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optiona
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from otgan_tpu_torch.config import TrainConfig, build_parser, config_from_namespace
 from otgan_tpu_torch.data.cifar10 import DataLoader, synthetic
@@ -128,7 +134,7 @@ from otgan_tpu_torch.ops import (
     sinkhorn_step_cuda,
 )
 from otgan_tpu_torch.parallel.mesh import init_from_env
-from otgan_tpu_torch.utils import checkpoint_orbax
+from otgan_tpu_torch.utils import checkpoint_orbax, tracing
 from otgan_tpu_torch.utils.checkpoint import (
     checkpoint_format,
     checkpoint_step,
@@ -538,15 +544,22 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
         eval_cache = EvalCache()
         start_time = begin = time.time()
         dist_gen, dist_disc, entropies = [], [], []
+        marks0 = tracing.device_ms(engine.device)
         placed_items = _prefetch_placed(work_items(), place, depth=1 if cfg.host_prefetch else 0)
         try:
-            for epoch, placed in placed_items:
-                if placed is not None:
+            while True:
+                with record_function("data_wait"):
+                    epoch, placed = next(placed_items, (None, None))
                     t0 = time.perf_counter()
-                    xs = [p.wait() if isinstance(p, Placed) else p for p in placed]
+                    if placed is not None:
+                        xs = [p.wait() if isinstance(p, Placed) else p for p in placed]
+                if epoch is None:
+                    break
+                if placed is not None:
                     start = state.step
                     kinds = [engine.is_disc_step(start + i) for i in range(len(xs))]
-                    state, mets = engine.cycle_step(state, xs)
+                    with record_function("dispatch"):
+                        state, mets = engine.cycle_step(state, xs)
                     if engine.fused_cycle_reason != fused_reason:  # a capture ran out of memory
                         fused_reason = engine.fused_cycle_reason
                         logger.log(state.step, fused_cycle_effective=engine.fused_cycle,
@@ -557,7 +570,8 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                     logged = [i for i in range(len(xs)) if stride and (start + i + 1) % stride == 0]
                     if logged:
                         # waits; a cycle's steps share its wall time
-                        vals = [(float(mets[i].dist), float(mets[i].entropy)) for i in logged]
+                        with record_function("readback"):
+                            vals = [(float(mets[i].dist), float(mets[i].entropy)) for i in logged]
                         step_ms = (time.perf_counter() - t0) * 1e3 / len(xs)
                         for i, (dist, ent) in zip(logged, vals):
                             rec = dict(step=start + i + 1, kind="disc" if kinds[i] else "gen",
@@ -566,61 +580,71 @@ def train(cfg: TrainConfig, device=None) -> TrainResult:
                             logger.log(rec["step"], **{k: v for k, v in rec.items() if k != "step"})
                     continue
                 # ---- the epoch's end ----
-                # an epoch with no step of a kind (short epochs under the 5:1
-                # schedule) carries that kind's last epoch mean, flagged;
-                # before the first such step the key is left out and the
-                # history holds None, which save_distances backfills
-                # (otgan_tpu/train.py:481-509)
-                vals = {}
-                for key, kind, hist in (("dist_gen", dist_gen, mean_dist_gen),
-                                        ("dist_disc", dist_disc, mean_dist_disc)):
-                    if kind:
-                        vals[key] = float(torch.stack(kind).mean())
-                    elif hist and hist[-1] is not None:
-                        vals[key], vals[f"{key}_carried"] = hist[-1], True
-                    hist.append(vals.get(key))
-                launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
-                if on_card:  # the process's peaks so far
-                    vals["peak_allocated_gb"] = torch.cuda.max_memory_allocated(engine.device) / 1e9
-                    vals["peak_reserved_gb"] = torch.cuda.max_memory_reserved(engine.device) / 1e9
-                logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
-                           entropy=float(torch.stack(entropies).mean()), launches=launches,
-                           cycle_replays=engine.replays, **vals)
-                if rank0:
-                    # per-epoch samples, raw and EMA (train.py:233-243)
-                    for prefix, ema in (("sample", False), ("ema_sample", True)):
-                        save_samples(engine, state,
-                                     os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
-                                     seed=epoch, ema=ema)
-                # periodic inception eval (train.py:245-273)
-                if rank0 and not is_toy and (epoch + 1) % cfg.eval_every_epochs == 0 \
-                        and epoch != start_epoch:
-                    best = _maybe_inception_eval(cfg, engine, state, logger, state.step,
-                                                 loader, eval_cache)
-                    if best is not None:
-                        if best > max_inception_score:
-                            max_inception_score, max_inception_epoch = best, epoch
-                        print(f"max inception score was {max_inception_score:.6f}, iter was "
-                              f"{max_inception_epoch}", flush=True)
-                        logger.log(state.step, max_inception_score=max_inception_score,
-                                   max_inception_epoch=max_inception_epoch)
-                # periodic checkpoint (train.py:275-281): the sharded backend
-                # on every rank, npz on rank 0
-                if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
-                    ckpt_kw = dict(slot_dtype=cfg.checkpoint_slot_dtype,
-                                   async_write=cfg.async_checkpoint,
-                                   max_to_keep=cfg.max_checkpoints_to_keep,
-                                   keep_every_hours=cfg.keep_checkpoint_every_n_hours)
-                    if cfg.checkpoint_backend == "orbax":
-                        path = checkpoint_orbax.save_checkpoint(cfg.save_dir, state, epoch,
-                                                                **ckpt_kw)
-                    elif rank0:
-                        path = save_checkpoint(cfg.save_dir, state, epoch, **ckpt_kw)
+                with record_function("epoch_end"):
+                    # an epoch with no step of a kind (short epochs under the 5:1
+                    # schedule) carries that kind's last epoch mean, flagged;
+                    # before the first such step the key is left out and the
+                    # history holds None, which save_distances backfills
+                    # (otgan_tpu/train.py:481-509)
+                    vals = {}
+                    with record_function("readback"):
+                        for key, kind, hist in (("dist_gen", dist_gen, mean_dist_gen),
+                                                ("dist_disc", dist_disc, mean_dist_disc)):
+                            if kind:
+                                vals[key] = float(torch.stack(kind).mean())
+                            elif hist and hist[-1] is not None:
+                                vals[key], vals[f"{key}_carried"] = hist[-1], True
+                            hist.append(vals.get(key))
+                        entropy = float(torch.stack(entropies).mean())
+                        # the epoch's steps are done: reading their marks waits no longer
+                        marks = tracing.device_ms(engine.device)
+                    launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
+                    if on_card:  # the process's peaks so far
+                        dev = engine.device
+                        vals["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                        vals["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+                    logger.log(state.step, epoch=epoch, epoch_time=time.time() - begin,
+                               entropy=entropy, launches=launches, cycle_replays=engine.replays,
+                               device_ms=tracing.per_step(marks, marks0), **vals)
+                    marks0 = marks
                     if rank0:
-                        logger.save_distances(mean_dist_gen, mean_dist_disc)
-                        print(f"saved {path}; elapsed hours "
-                              f"{(time.time() - start_time) / 3600:.3f}; total updates "
-                              f"{state.step}", flush=True)
+                        # per-epoch samples, raw and EMA (train.py:233-243)
+                        with record_function("samples"):
+                            for prefix, ema in (("sample", False), ("ema_sample", True)):
+                                save_samples(engine, state,
+                                             os.path.join(cfg.save_dir, f"{prefix}{epoch}.png"),
+                                             seed=epoch, ema=ema)
+                    # periodic inception eval (train.py:245-273)
+                    if rank0 and not is_toy and (epoch + 1) % cfg.eval_every_epochs == 0 \
+                            and epoch != start_epoch:
+                        with record_function("eval"):
+                            best = _maybe_inception_eval(cfg, engine, state, logger, state.step,
+                                                         loader, eval_cache)
+                        if best is not None:
+                            if best > max_inception_score:
+                                max_inception_score, max_inception_epoch = best, epoch
+                            print(f"max inception score was {max_inception_score:.6f}, iter was "
+                                  f"{max_inception_epoch}", flush=True)
+                            logger.log(state.step, max_inception_score=max_inception_score,
+                                       max_inception_epoch=max_inception_epoch)
+                    # periodic checkpoint (train.py:275-281): the sharded backend
+                    # on every rank, npz on rank 0
+                    if (epoch + 1) % cfg.save_every_epochs == 0 and epoch != start_epoch:
+                        ckpt_kw = dict(slot_dtype=cfg.checkpoint_slot_dtype,
+                                       async_write=cfg.async_checkpoint,
+                                       max_to_keep=cfg.max_checkpoints_to_keep,
+                                       keep_every_hours=cfg.keep_checkpoint_every_n_hours)
+                        with record_function("checkpoint"):
+                            if cfg.checkpoint_backend == "orbax":
+                                path = checkpoint_orbax.save_checkpoint(cfg.save_dir, state,
+                                                                        epoch, **ckpt_kw)
+                            elif rank0:
+                                path = save_checkpoint(cfg.save_dir, state, epoch, **ckpt_kw)
+                        if rank0:
+                            logger.save_distances(mean_dist_gen, mean_dist_disc)
+                            print(f"saved {path}; elapsed hours "
+                                  f"{(time.time() - start_time) / 3600:.3f}; total updates "
+                                  f"{state.step}", flush=True)
                 dist_gen, dist_disc, entropies = [], [], []
                 begin = time.time()
         finally:

@@ -1,7 +1,8 @@
 """The hand-written CUDA Sinkhorn kernels on a card (the column-potential
 loop, the row-sharded matcher's local step, the resident whole-loop kernel
 and the grid whole-loop kernel), against their plain PyTorch versions on the
-same logits. Every test here needs an NVIDIA GPU and
+same logits, and the engine's phase marks (``csrc/phase_marks.cu``) in an
+eager, a captured and a profiled cycle. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
@@ -13,6 +14,8 @@ their potentials drift by log(M/N) per iteration, to |v| ~ 400 after 500
 iterations, where float32 spacing is 3e-5; those shapes run 100 iterations
 at a small aspect ratio.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -708,3 +711,80 @@ def test_group_matcher_capture_replays_eager(cuda_device, layout, B, kernel, eve
         assert sum(kernel in n for n in names) == events, sorted(set(names))[:20]
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_phase_marks_count_and_time_a_replayed_cycle(cuda_device, tmp_path):
+    """One DCGAN 5:1 cycle at batch 128 (50 Sinkhorn iterations) eagerly,
+    one captured and replayed, one replayed under ``torch.profiler``: the
+    tally counts one a step in each of the five slots of its kind, eager
+    and replayed, from ten marks a step; the profiled replay's marks run in
+    the cycle's order; each slot's profiled total agrees with the interval
+    between its marks in the trace within 2% or 20 us; and every other
+    kernel of the replay starts between a step's marks."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.utils import tracing
+
+    eng = Engine(TrainConfig(model="dcgan", batch_size=128, nr_sinkhorn_iter=50), cuda_device)
+    rng = np.random.default_rng(0)
+
+    def batches():
+        return [torch.from_numpy(rng.integers(0, 256, (128, 32, 32, 3), dtype=np.uint8))
+                for _ in range(6)]
+
+    def counts(totals):
+        return {kind: {s: v["count"] for s, v in slots.items()} for kind, slots in totals.items()}
+
+    def cycles(n):
+        return {"gen": dict.fromkeys(tracing.SLOTS, 5 * n),
+                "disc": dict.fromkeys(tracing.SLOTS, n)}
+
+    state, _ = eng.init_state(1, batches()[0])
+    tracing.reset()
+    state, _ = eng.cycle_step(state, batches())  # eager
+    torch.cuda.synchronize()
+    assert counts(tracing.device_ms(cuda_device)) == cycles(1)
+    state, _ = eng.cycle_step(state, batches())  # captured, then replayed
+    torch.cuda.synchronize()
+    assert len(eng._graphs) == 1 and eng.replays == 1
+    assert counts(tracing.device_ms(cuda_device)) == cycles(2)
+    xs = batches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, _ = eng.cycle_step(state, xs)
+        torch.cuda.synchronize()
+    assert eng.replays == 2
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    profiled = tracing.profiled_device_ms(cuda_device)
+    assert counts(profiled) == cycles(1)
+    assert counts(tracing.device_ms(cuda_device)) == cycles(3)
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    marks = sorted((e for e in events if tracing.MARK.search(e["name"])),
+                   key=lambda e: float(e["ts"]))
+    order = []
+    for kind in ["disc"] + ["gen"] * 5:
+        order.append((kind, "step", "begin"))
+        for p in tracing.PHASE_SPANS:
+            order += [(kind, p, "begin"), (kind, p, "end")]
+        order.append((kind, "step", "end"))
+    assert [tracing.MARK.search(e["name"]).groups() for e in marks] == order
+    summary = tracing.summarize(path)
+    for kind, slots in profiled.items():
+        for slot, v in slots.items():
+            n, ms = summary["marks"][f"{kind}.{slot}"]
+            assert n == v["count"]
+            assert abs(ms - v["ms"]) <= max(0.02 * ms, 0.02), (kind, slot, ms, v["ms"])
+    steps = [(a, end) for a, _, end, _, slot in tracing._marked(events) if slot == "step"]
+    first, last = float(marks[0]["ts"]), float(marks[-1]["ts"])
+    inside = [e for e in events if not tracing.MARK.search(e["name"])
+              and first <= float(e["ts"]) <= last]
+    assert inside and all(any(a <= float(e["ts"]) < b for a, b in steps) for e in inside)
+    phase_ms = summary["phase_device_ms"]
+    print(f"phase marks at batch 128: profiled {json.dumps(profiled)}; phase_device_ms "
+          f"{json.dumps(phase_ms)}; mean mark "
+          f"{sum(float(e['dur']) for e in marks) / len(marks):.2f} us")

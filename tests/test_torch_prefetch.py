@@ -80,28 +80,24 @@ def test_trainer_metrics_equal_with_and_without_prefetch(tmp_path):
 
 def test_step_gaps_read_the_idle_time_between_steps(tmp_path):
     """``utils/tracing.py::step_gaps`` on a written trace: two steps whose
-    kernels end at 100 and start again at 130 us, a host-to-device copy of
-    10 us inside the gap, a kernel launched outside every step that runs 5
-    us of it, and one after the steps."""
+    marks (``csrc/phase_marks.cu``) end at 100 and begin again at 130 us, a
+    host-to-device copy of 10 us inside the gap, a kernel outside every
+    step that runs 5 us of it, and one after the steps."""
     import json
 
     from otgan_tpu_torch.utils.tracing import step_gaps
 
-    def ev(cat, name, ts, dur, corr=None):
-        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
-        if corr is not None:
-            e["args"] = {"correlation": corr}
-        return e
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
 
-    events = [ev("user_annotation", "disc_step", 0, 50), ev("user_annotation", "gen_step", 60, 50),
-              ev("cuda_runtime", "cudaLaunchKernel", 10, 1, 1),
-              ev("cuda_runtime", "cudaLaunchKernel", 20, 1, 2),
-              ev("cuda_runtime", "cudaLaunchKernel", 70, 1, 3),
-              ev("cuda_runtime", "cudaLaunchKernel", 200, 1, 4),
-              ev("cuda_runtime", "cudaLaunchKernel", 55, 1, 5),
-              ev("kernel", "a", 30, 40, 1), ev("kernel", "b", 70, 30, 2),
-              ev("kernel", "c", 130, 20, 3), ev("kernel", "d", 300, 5, 4),
-              ev("kernel", "sample", 122, 5, 5),
+    def mark(kind, edge, ts):
+        return ev("kernel", f"void otgan_mark<{kind}, step, {edge}>(unsigned long long*)", ts, 1)
+
+    events = [ev("user_annotation", "cycle", 0, 10),
+              mark("disc", "begin", 25), ev("kernel", "a", 30, 40), ev("kernel", "b", 70, 28),
+              mark("disc", "end", 99), mark("gen", "begin", 130), ev("kernel", "c", 131, 19),
+              mark("gen", "end", 150), ev("kernel", "d", 300, 5),
+              ev("kernel", "sample", 122, 5),
               ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 110, 10)]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))

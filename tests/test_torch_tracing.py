@@ -1,11 +1,23 @@
-"""The trainer's ``--profile_dir`` and ``--debug_nans`` on the CPU, on the
-toy (batch 16, 1:1 schedule, short epochs).
+"""The trainer's ``--profile_dir`` and ``--debug_nans``, and the engine's
+phase marks, on the CPU, on the toy (batch 16 or 32, short epochs).
 
 ``--profile_dir`` writes a Chrome trace of the run that holds the step
 spans and their phase spans, also when the run raises. ``--debug_nans``
 raises ``FloatingPointError`` at the step whose batch carries a NaN, naming
 it, and not before; without the flag the same run ends with the NaN
 visible in ``dist`` (the JAX package's probe: NaN in, NaN out, not masked).
+
+The marks (``utils/tracing.py::phase``) run on the host clock here, through
+the same state machine as the card's kernels: each kind of step counts one
+in each slot a step, eager or replayed (a stub graph's capture runs the
+cycle; its marks are taken back and added once a replay, as the card runs
+them in each replay and none at capture), ``profiled_device_ms`` counts only
+the calls made under a profiler, and the epoch record carries the ms a step.
+The trace reader attributes kernels to phases by the marks on the device
+timeline (a hand-written trace of a replay: one ``cycle`` host span) and
+finds the gaps between steps. The benchmark's readers of the marks give
+nothing where the program has no marks, counted no step, or runs off the
+card.
 """
 
 import json
@@ -14,10 +26,20 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from otgan_tpu_torch import train as train_mod
+from otgan_tpu_torch.config import TrainConfig
 from otgan_tpu_torch.data.toy import sample_8gaussians
-from otgan_tpu_torch.utils.tracing import PHASE_SPANS, summarize, trace_path
+from otgan_tpu_torch.engine import Engine
+from otgan_tpu_torch.utils import tracing
+from otgan_tpu_torch.utils.tracing import PHASE_SPANS, SLOTS, summarize, trace_path
+from portbench import spec
+from tests.test_torch_parallel_worker import StubGraph
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+READERS = ("features_device_ms", "match_device_ms", "backward_device_ms", "update_device_ms",
+           "step_device_ms")
 
 POISONED = 3  # 0-based index of the step whose batch holds a NaN
 
@@ -75,3 +97,187 @@ def test_without_debug_nans_the_nan_stays_visible(toy_run):
     dists = [r["dist"] for r in result.steps]
     assert len(dists) == 6 and all(math.isfinite(d) for d in dists[:POISONED])
     assert math.isnan(dists[POISONED]) and math.isnan(dists[-1])
+
+
+@pytest.fixture
+def toy_engine():
+    """A toy engine on the CPU at 2:1 (calls of 3 batches are whole
+    cycles, a critic step first) with every tally zeroed, and its batches."""
+    torch.manual_seed(0)
+    eng = Engine(TrainConfig(model="toy_mlp", batch_size=32, sinkhorn_lambda=50.0,
+                             nr_sinkhorn_iter=5, nr_gen_per_disc=2), "cpu")
+    rng = np.random.default_rng(0)
+    state, _ = eng.init_state(1, sample_8gaussians(rng, 32))
+    tracing.reset()
+    batches = [torch.from_numpy(sample_8gaussians(rng, 32)) for _ in range(15)]
+    yield eng, state, batches
+    tracing.reset()
+
+
+def _counts(totals):
+    return {kind: {slot: v["count"] for slot, v in slots.items()}
+            for kind, slots in totals.items()}
+
+
+def _each_slot(n_gen, n_disc):
+    return {"gen": dict.fromkeys(SLOTS, n_gen), "disc": dict.fromkeys(SLOTS, n_disc)}
+
+
+def test_eager_marks_count_each_step_once(toy_engine):
+    """Two eager cycles and a lone critic step: each kind counts one in each
+    of its five slots a step, and its four phases fit inside its steps."""
+    eng, state, xs = toy_engine
+    state, _ = eng.cycle_step(state, xs[:3])
+    state, _ = eng.cycle_step(state, xs[3:6])
+    state, _ = eng.disc_step(state, xs[6])
+    totals = tracing.device_ms("cpu")
+    assert _counts(totals) == _each_slot(4, 3)
+    for kind, slots in totals.items():
+        phases = sum(slots[p]["ms"] for p in PHASE_SPANS)
+        assert 0 < phases <= slots["step"]["ms"], kind
+        assert all(slots[p]["ms"] > 0 for p in PHASE_SPANS), kind
+
+
+def test_profiled_totals_count_only_calls_under_a_profiler(toy_engine):
+    """Two calls before a profiler, two under it, one after: the profiled
+    totals are the middle two's steps, read after the profiler stopped
+    (with no call since: the totals as they stand) and after the next call
+    (the copy taken at that call)."""
+    eng, state, xs = toy_engine
+    for i in range(2):
+        state, _ = eng.cycle_step(state, xs[3 * i:3 * i + 3])
+    assert _counts(tracing.profiled_device_ms("cpu")) == _each_slot(0, 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i in range(2, 4):
+            state, _ = eng.cycle_step(state, xs[3 * i:3 * i + 3])
+    under = tracing.profiled_device_ms("cpu")
+    assert _counts(under) == _each_slot(4, 2)
+    state, _ = eng.cycle_step(state, xs[12:15])
+    assert tracing.profiled_device_ms("cpu") == under
+    assert _counts(tracing.device_ms("cpu")) == _each_slot(10, 5)
+
+
+def test_replayed_steps_are_counted_under_a_stub_graph(toy_engine):
+    """An eager call, a capture and its replay, two more replays: every
+    step counts once (the capture's own marks are taken back), under a
+    profiler too."""
+    eng, state, xs = toy_engine
+    eng.cycle_graphs, eng.graph_factory = True, StubGraph
+    state, _ = eng.cycle_step(state, xs[:3])
+    state, _ = eng.cycle_step(state, xs[3:6])
+    graph = next(iter(eng._graphs.values()))
+    assert _counts(tracing.device_ms("cpu")) == _each_slot(4, 2)
+    assert graph.marks[..., 0].abs().sum() == 0 and int(graph.marks[..., 2].sum()) == 15
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i in range(2, 4):
+            state, _ = eng.cycle_step(state, xs[3 * i:3 * i + 3])
+    assert eng.replays == 3 and state.step == 12
+    assert _counts(tracing.profiled_device_ms("cpu")) == _each_slot(4, 2)
+    assert _counts(tracing.device_ms("cpu")) == _each_slot(8, 4)
+
+
+def _trace(path, events):
+    with open(path, "w") as f:
+        json.dump({"traceEvents": [dict(e, ph="X") for e in events]}, f)
+    return str(path)
+
+
+def _kernel(name, ts, dur):
+    return {"cat": "kernel", "name": name, "ts": ts, "dur": dur}
+
+
+def _marks(kind, slot, ts, dur=1.0):
+    return [_kernel(f"void otgan_mark<{kind}, {slot}, {edge}>(unsigned long long*)", t, dur)
+            for edge, t in (("begin", ts[0]), ("end", ts[1]))]
+
+
+def _replayed_step(kind, t0):
+    """One step of a replay from device time ``t0`` (us): its marks, a
+    latent draw, a kernel in each phase (10, 20, 30 and 4 us) and 100 us in
+    all."""
+    ev = _marks(kind, "step", (t0, t0 + 99))
+    ev.append(_kernel("uniform_", t0 + 2, 1))
+    for slot, (a, b, dur) in (("features", (4, 20, 10)), ("match", (20, 50, 20)),
+                              ("loss_backward", (50, 90, 30)), ("update", (90, 97, 4))):
+        ev += _marks(kind, slot, (t0 + a, t0 + b))
+        ev.append(_kernel(f"{slot}_kernel", t0 + a + 2, dur))
+    return ev
+
+
+def test_summarize_and_step_gaps_read_a_replay_by_its_marks(tmp_path):
+    """Two calls, each one ``cycle`` host span whose replay runs a critic
+    and a generator step back to back; between them the card idles 100 us
+    less a 20 us copy, under the trainer's ``data_wait`` and ``dispatch``
+    spans. Every kernel but the marks and the latent draws is in its phase,
+    the gaps are between the steps' marks, and each idle interval is named
+    by the span that covers most of it."""
+    events = [{"cat": "user_annotation", "name": "cycle", "ts": 0, "dur": 5},
+              {"cat": "user_annotation", "name": "data_wait", "ts": 195, "dur": 50},
+              {"cat": "user_annotation", "name": "dispatch", "ts": 276, "dur": 50},
+              {"cat": "user_annotation", "name": "cycle", "ts": 280, "dur": 5},
+              {"cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> Device)", "ts": 220,
+               "dur": 20}]
+    for kind, t0 in (("disc", 0), ("gen", 100), ("disc", 300), ("gen", 400)):
+        events += _replayed_step(kind, t0)
+    path = _trace(tmp_path / "trace.json", events)
+    summary = summarize(path)
+    phase_ms = summary["phase_device_ms"]
+    assert phase_ms["features"] == pytest.approx(0.04) and phase_ms["match"] == pytest.approx(0.08)
+    assert phase_ms["loss_backward"] == pytest.approx(0.12)
+    assert phase_ms["update"] == pytest.approx(0.016)
+    assert phase_ms["other"] == pytest.approx(4 * (10 + 1) * 1e-3)  # the marks, the draws
+    assert summary["marks"]["gen.step"] == [2, pytest.approx(0.198)]
+    assert summary["marks"]["disc.match"] == [2, pytest.approx(0.06)]
+    assert summary["spans"]["gen_step"] == [0, 0.0]  # a replay has no step span
+    gaps = tracing.step_gaps(path)
+    assert gaps["gaps_ms"] == pytest.approx([0.0, 0.1, 0.0])
+    assert gaps["idle_ms"] == pytest.approx([0.0, 0.08, 0.0])
+    assert gaps["copy_ms"] == pytest.approx([0.0, 0.02, 0.0])
+    idle = summary["idle_gaps"]
+    assert idle[:2] == [["dispatch", pytest.approx(0.06)], ["data_wait", pytest.approx(0.02)]]
+    assert all(ms < 0.01 for _, ms in idle[2:])  # between the kernels of a step
+
+
+def test_epoch_record_holds_device_ms(tmp_path, monkeypatch):
+    """The toy at 1:1 for two epochs of 3 batches: each epoch's record
+    carries the ms a step of each kind and slot, its phases within its
+    step."""
+    monkeypatch.setenv("OTGAN_TOY_EPOCH_BATCHES", "3")
+    run = tmp_path / "run"
+    train_mod.main(["--model", "toy_mlp", "--batch_size", "16", "--nr_sinkhorn_iter", "5",
+                    "--nr_gen_per_disc", "1", "--max_epochs", "2", "--save_dir", str(run),
+                    "--device", "cpu"])
+    with open(run / "metrics.jsonl") as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+    assert len(epochs) == 2
+    for rec in epochs:
+        assert set(rec["device_ms"]) == {"gen", "disc"}
+        for kind, slots in rec["device_ms"].items():
+            assert set(slots) == set(SLOTS)
+            assert 0 < sum(slots[p] for p in PHASE_SPANS) <= slots["step"], (kind, slots)
+
+
+def _profiled(steps):
+    """``profiled_device_ms`` with ``steps`` generator steps of 1, 2, 3, 4
+    and 11 ms in the five slots."""
+    ms = dict(zip(SLOTS, (1.0, 2.0, 3.0, 4.0, 11.0)))
+    zero = {slot: {"ms": 0.0, "count": 0} for slot in SLOTS}
+    return {"gen": {s: {"ms": steps * v, "count": steps} for s, v in ms.items()}, "disc": zero}
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_mark_readers_give_nothing_without_the_counters(name, monkeypatch):
+    """A reader of the marks is None where the program has no
+    ``profiled_device_ms`` (the parent's), where it counted no step, and
+    off the card; on the card it is the slot's ms over the steps."""
+    read = spec.load_reader(ROOT, name)
+    assert read(None) is None  # no card here
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(tracing, "profiled_device_ms", lambda device=None: _profiled(0))
+    assert read(None) is None
+    monkeypatch.setattr(tracing, "profiled_device_ms", lambda device=None: _profiled(3))
+    slot = {"backward_device_ms": "loss_backward"}.get(name, name[:-len("_device_ms")])
+    assert read(None) == pytest.approx(dict(zip(SLOTS, (1.0, 2.0, 3.0, 4.0, 11.0)))[slot])
+    monkeypatch.delattr(tracing, "profiled_device_ms")
+    assert read(None) is None
