@@ -28,7 +28,9 @@ Run from the root of a checkout, it
    eagerly, the next is captured and replayed, the third replayed), with
    every launch counter set
    to 0 just before and read just after: the grid kernel must have
-   launched once a step and nothing else, no plain version;
+   launched once a step and no other Sinkhorn kernel, no plain version,
+   and the layer boundaries 16 times a critic step, 17 a generator step
+   and 4 a sample grid's generator forward;
 4b. runs the same cycle again with ``--profile_dir``, ``--debug_nans`` and
    ``--no_fused_cycle`` (its host spans of a step and its phases exist
    only outside a graph's replay), as its own process (``chip_smoke.py
@@ -222,6 +224,12 @@ Run from the root of a checkout, it
    500 local-step device events, and a capture that runs out of memory
    (the card's free memory held) switches the engine to eager, bit for bit
    equal to an unfused engine, with no graph pool left;
+16. (before 11) the layer-boundary kernels (``csrc/layer_boundary.cu``) at
+   batch 5000's shapes, each boundary of the critic (on one half) and of
+   the generator: forward and input gradient bit for bit the plain chain's,
+   the bias gradient within 1e-5 of its terms' magnitudes; the device ms of
+   each direction, the plain chain's (forward and backward through
+   autograd) and the bound (bytes over the card's bandwidth);
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
@@ -981,7 +989,9 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, cycle, tier: str, env,
     from rank 0's ``metrics.jsonl`` that the matcher ran the ``tier`` kernel
     and no plain version: a local-step tier (``fused``, ``stream``) of the
     row-sharded matcher, or ``grid`` for the matrix-parallel one, which must
-    launch it once per matrix rank 0 owns and step, and nothing else."""
+    launch it once per matrix rank 0 owns and step, and nothing else; and
+    that the layer boundaries ran on their kernels, never their plain
+    version."""
     from otgan_tpu_torch.ops import sinkhorn_step_cuda as st
     from otgan_tpu_torch.parallel.matching_matrix import _owner_counts
 
@@ -1023,6 +1033,13 @@ def train_on_gpus(k: int, preset: str, batch: int, flags, cycle, tier: str, env,
     if fused and (not res["fused_cycle_effective"] or res["fused_cycle_reason"] or switched
                   or res["cycle_replays"] < 2):
         raise AssertionError(f"{preset} on {k} GPUs did not run fused to the end: {res}")
+    # the bf16 DCGAN's boundaries on their kernels: 16 crossings a critic
+    # step, 17 a generator step, on every rank; their plain version never
+    boundaries = sum(16 if r["kind"] == "disc" else 17 for r in steps)
+    if launches["layer_boundary"] < boundaries or launches["layer_boundary_plain"]:
+        raise AssertionError(f"{preset} on {k} GPUs ({how}) crossed {launches['layer_boundary']} "
+                             f"layer boundaries on their kernels, not at least {boundaries}, "
+                             f"or took their plain version: {launches}")
     if tier == "grid":
         if not res["matcher"].startswith("matrix-parallel"):
             raise AssertionError(f"the run did not take the matrix-parallel matcher: "
@@ -1119,7 +1136,113 @@ def multi_gpu_phase(n_cards: int) -> dict:
     return multi
 
 
+# the DCGAN's layer boundaries: (mode, y's shape without the batch, pads or
+# (factor, hw)); tests/test_torch_cuda.py runs them at 512 images
+BOUNDARIES = {
+    "critic_0_1": ("crelu_pad", (32, 32, 128), (1, 2, 1, 2)),
+    "critic_1_2": ("crelu_pad", (16, 16, 256), (1, 2, 1, 2)),
+    "critic_2_3": ("crelu_pad", (8, 8, 512), (1, 2, 1, 2)),
+    "gen_dense_0": ("glu_upsample", (32768,), (2, (4, 4))),
+    "gen_0_1": ("glu_upsample", (8, 8, 1024), (2, None)),
+    "gen_1_2": ("glu_upsample", (16, 16, 512), (2, None)),
+    "gen_2_3": ("glu_upsample", (32, 32, 256), (1, None)),
+}
+
+
+def hold_boundary(name: str, n: int, bw: float) -> dict:
+    """One boundary on ``n`` images against its plain chain, and its times:
+    the kernel's forward and backward (gradients of y and of the bias), the
+    plain chain's forward and backward through autograd, and the bound of
+    each direction: the bytes the kernel must move (bf16 activations and
+    gradients, padding written; the bias terms are negligible) over ``bw``."""
+    import torch
+
+    from otgan_tpu_torch.nn import layer_boundary as lb
+
+    mode, shape, arg = BOUNDARIES[name]
+    args = (arg,) if mode == "crelu_pad" else arg
+    op, plain = getattr(lb, mode), getattr(lb, f"{mode}_plain")
+    backward = getattr(lb, f"{mode}_backward_cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    y = torch.randn((n, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+    bias = 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
+    x = op(y, bias, *args)
+    gx = (1e-3 * torch.randn(x.shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def through(fn):
+        yy, bb = y.clone().requires_grad_(), bias.clone().requires_grad_()
+        out = fn(yy, bb, *args)
+        return (out, *torch.autograd.grad(out, (yy, bb), gx))
+
+    got, want = through(op), through(plain)
+    scale = float(want[1].float().abs().sum()) / shape[-1]
+    bias_err = float((got[2] - want[2]).abs().max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and bias_err <= 1e-5 * scale):
+        raise AssertionError(f"layer boundary {name} at {n} images differs from the plain chain: "
+                             f"forward {torch.equal(got[0], want[0])}, gradient "
+                             f"{torch.equal(got[1], want[1])}, bias {bias_err:.3e} "
+                             f"(scale {scale:.3e})")
+    del got, want
+    if mode == "crelu_pad":
+        def back():
+            return backward(gx, x, y.shape, arg)
+        interior = y.numel() * 2
+        fwd_bytes, bwd_bytes = 2 * (y.numel() + x.numel()), 2 * (2 * interior + y.numel())
+    else:
+        def back():
+            return backward(gx, y, bias, *arg)
+        fwd_bytes, bwd_bytes = 2 * (y.numel() + x.numel()), 2 * (2 * y.numel() + x.numel())
+    res = {"mode": mode, "y_shape": [n, *shape], "x_shape": list(x.shape),
+           "fwd_ms": cuda_ms(lambda: op(y, bias, *args), reps=20),
+           "bwd_ms": cuda_ms(back, reps=20),
+           "plain_ms": cuda_ms(lambda: through(plain), reps=5),
+           "bound_fwd_ms": fwd_bytes / bw * 1e3, "bound_bwd_ms": bwd_bytes / bw * 1e3,
+           "bias_max_abs_err": bias_err, "bias_err_scale": scale}
+    res["ms"] = res["fwd_ms"] + res["bwd_ms"]
+    res["bound_ms"] = res["bound_fwd_ms"] + res["bound_bwd_ms"]
+    res["roofline_pct"] = 100 * res["bound_ms"] / res["ms"]
+    return res
+
+
+def boundary_phase(card: str) -> list:
+    """Phase 16: every boundary at batch 5000 (the critic's on one half);
+    returns the ``kernels`` line's entries, one a mode."""
+    import torch
+
+    _, (bw, _) = peaks(torch.cuda.get_device_name(0))
+    held = {}
+    for name in BOUNDARIES:
+        held[name] = hold_boundary(name, BATCH, bw)
+        r = held[name]
+        print(f"layer boundary {name} {r['mode']} y {r['y_shape']} -> {r['x_shape']} on {card}: "
+              f"forward {r['fwd_ms']:.4f} ms (bound {r['bound_fwd_ms']:.4f}), backward "
+              f"{r['bwd_ms']:.4f} ms (bound {r['bound_bwd_ms']:.4f}), {r['roofline_pct']:.1f}% "
+              f"of the bound; plain chain {r['plain_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    entries = []
+    for mode in ("crelu_pad", "glu_upsample"):
+        mine = {k: r for k, r in held.items() if r["mode"] == mode}
+        entries.append({
+            "name": f"layer_boundary_{mode}",
+            "route": "cuda",
+            "source": "otgan_tpu_torch/csrc/layer_boundary.cu",
+            "replaces": None,
+            "replaces_note": "no Pallas kernel: XLA fuses this chain in the JAX package",
+            "ms": sum(r["ms"] for r in mine.values()),
+            "bound_ms": sum(r["bound_ms"] for r in mine.values()),
+            "plain_ms": sum(r["plain_ms"] for r in mine.values()),
+            "library_ms": None,
+            "library_null_reason": "no single PyTorch call runs the chain; plain_ms is its "
+                                   "separate kernels",
+            "at": f"batch {BATCH}: each boundary once forward and once backward",
+            "held": mine,
+        })
+    return entries
+
+
 def reset_all_counts() -> None:
+    from otgan_tpu_torch.nn import layer_boundary
     from otgan_tpu_torch.ops import (
         sinkhorn_cuda,
         sinkhorn_grid_cuda,
@@ -1127,7 +1250,8 @@ def reset_all_counts() -> None:
         sinkhorn_step_cuda,
     )
 
-    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
+                layer_boundary):
         mod.reset_launch_counts()
 
 
@@ -1138,8 +1262,9 @@ def epoch_records(run_dir: str) -> list:
 
 def check_tier_path(launches: dict, tier: str, what: str, want=None) -> None:
     """The run launched the ``tier`` kernel (``want`` times, when given)
-    and nothing else: no other kernel, no plain version."""
-    others = {k: n for k, n in launches.items() if k != tier}
+    and no other Sinkhorn kernel, and no plain version of any kernel (the
+    layer boundaries' kernels run beside every tier)."""
+    others = {k: n for k, n in launches.items() if k not in (tier, "layer_boundary")}
     if launches[tier] < 1 or (want is not None and launches[tier] != want) or any(
             others.values()):
         raise AssertionError(f"{what} did not run the {tier} tier alone: {launches}")
@@ -1387,8 +1512,10 @@ def eval_phase(card: str, b256_dir: str) -> dict:
               f"({res['evaluate_img_per_s']:.0f} img/s, generation and two passes included), "
               f"peak {res['evaluate_peak_gb']:.2f} GB; Sinkhorn launches {launches} on {card}",
               flush=True)
-        if any(launches.values()):
-            raise AssertionError(f"the eval path launched a Sinkhorn kernel: {launches}")
+        # sampling crosses the generator's layer boundaries; nothing else launches
+        if any(n for k, n in launches.items() if k != "layer_boundary"):
+            raise AssertionError(f"the eval path launched a Sinkhorn kernel or a plain "
+                                 f"version: {launches}")
         if not all(math.isfinite(out[k]) for k in ("inception_score", "inception_std", "fid")):
             raise AssertionError(f"evaluate gave non-finite scores: {out}")
         res["train_event"] = train_eval_event(card)
@@ -2519,7 +2646,8 @@ def leg_report(name: str, leg: dict) -> dict:
     for r in epochs:
         steps = r["step"] - start
         launches = r["launches"]
-        others = {k: n for k, n in launches.items() if k != "col_potential" and n}
+        others = {k: n for k, n in launches.items()
+                  if k not in ("col_potential", "layer_boundary") and n}
         if launches["col_potential"] != steps or others:
             raise AssertionError(f"{name}, epoch {r['epoch']}: {steps} steps launched "
                                  f"{launches}; kernel 1 once a step and nothing else expected")
@@ -2591,14 +2719,36 @@ def fill_device_memory(leave: int) -> list:
     return held
 
 
+def fill_graph_pool(pool) -> list:
+    """Tensors, allocated in the private memory pool ``pool`` of a live
+    CUDA graph, that take that pool's free blocks, to the last MiB, once the
+    card's free memory is held (``fill_device_memory``): a capture into the
+    pool then finds no room in it either. The blocks belong to the stream
+    the captures ran on (``torch.cuda.graph``'s default capture stream, the
+    engine's), so the tensors are made on it. Freed, they go back to the
+    pool, which the card gets back once its graphs are gone."""
+    import types
+
+    import torch
+
+    stream = torch.cuda.graph.default_capture_stream
+    if stream is None:
+        raise AssertionError("no CUDA graph has been captured: there is no pool to fill")
+    with torch.cuda.stream(stream), torch.cuda.use_mem_pool(types.SimpleNamespace(id=pool)):
+        return fill_device_memory(0)
+
+
 def capture_oom_check(cfg, card: str) -> dict:
     """Fault 1 provoked on the card: engines A (fused) and B
     (``--no_fused_cycle``) from one seed take steps 0-3 (A: eager
     warm-up, the generator's graph captured and replayed); then the card's
-    free memory is held, so A's capture of the critic step (step 4) runs
-    out of memory. At the switch the held memory is let go (a stand-in for
-    what the dead graph held); A must run eagerly from there on, print why,
-    and take steps 4-5 bit for bit as B does, its generator where B's is."""
+    free memory is held, and so are the free blocks of the pool A's graph
+    holds (the critic step's capture would fit in them), so A's capture of
+    the critic step (step 4) runs out of memory while the generator's graph
+    is alive. At the switch the held memory is let go (a stand-in for what
+    the dead graph held); A must drop the live graph and its pool, run
+    eagerly from there on, print why, and take steps 4-5 bit for bit as B
+    does, its generator where B's is."""
     import dataclasses
 
     import torch
@@ -2629,20 +2779,30 @@ def capture_oom_check(cfg, card: str) -> dict:
         x = torch.from_numpy(b8000_batches(10 + s)).cuda()
         if s == 4:
             rng_b[4] = states[1].rng.get_state()
-            # room for the capture's copy of the batch, not for the capture
-            held = fill_device_memory(2 * x.numel())
+            # room for the capture's copy of the batch, not for the capture,
+            # kept out of both fills (a pool that runs out takes the card's
+            # cached free blocks)
+            spare = torch.empty(2 * x.numel(), dtype=torch.uint8, device="cuda")
+            held = fill_device_memory(0)
             seen["held_gb"] = sum(t.numel() for t in held) / 1e9
+            in_pool = fill_graph_pool(a._graph_pool)
+            seen["pool_held_gb"] = sum(t.numel() for t in in_pool) / 1e9
+            held += in_pool
+            del spare, in_pool
         for i, e in enumerate(engines):
             states[i], m = e.cycle_step(states[i], [x])
             mets[i] += m
-        if s == 3 and len(a._graphs) != 1:
-            raise AssertionError(f"engine A holds {len(a._graphs)} graphs after step 3")
+        if s == 3:
+            seen["graphs_before"] = len(a._graphs)
+            if len(a._graphs) != 1:
+                raise AssertionError(f"engine A holds {len(a._graphs)} graphs after step 3")
     equal_steps = all(torch.equal(p.dist, q.dist) and torch.equal(p.entropy, q.entropy)
                       for p, q in zip(*mets))
     equal_state = all(torch.equal(p, q) for (_, p), (_, q) in
                       zip(_named_tensors(states[0]), _named_tensors(states[1])))
     res = {"reason": a.fused_cycle_reason, "fused_cycle_effective": a.fused_cycle,
-           "graphs_after": len(a._graphs), "held_gb": seen.get("held_gb"),
+           "graphs_before": seen.get("graphs_before"), "graphs_after": len(a._graphs),
+           "held_gb": seen.get("held_gb"), "pool_held_gb": seen.get("pool_held_gb"),
            "steps_bitwise_equal": equal_steps, "state_bitwise_equal": equal_state,
            "rng_at_switch_equals_unfused": bool("rng" in seen and torch.equal(seen["rng"],
                                                                                rng_b[4])),
@@ -2655,6 +2815,7 @@ def capture_oom_check(cfg, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if not (res["step"] == 4 and not res["fused_cycle_effective"] and not res["graphs_after"]
+            and res["graphs_before"] == 1
             and "ran out of device memory" in res["reason"] and equal_steps and equal_state
             and res["rng_at_switch_equals_unfused"] and res["rng_end_equal"]
             and not res["capturing"] and res["stream_is_default"]
@@ -3028,6 +3189,11 @@ def main() -> int:
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError("non-finite dist or entropy on the main path")
     check_tier_path(launches, "grid", "the main path (batch 5000, 6 x 2500^2)", want=len(steps))
+    # 16 crossings a critic step, 17 a generator step, and 4 a generator
+    # forward of each epoch's raw and EMA sample grids (3 epochs)
+    if launches["layer_boundary"] != 16 + 17 * 5 + 3 * 2 * 4:
+        raise AssertionError(f"the main path crossed {launches['layer_boundary']} layer "
+                             "boundaries on their kernels, not 16 + 17 x 5 + 3 x 2 x 4")
     with torch.no_grad():
         imgs = result.state.gen(torch.zeros((4, 100), device="cuda"))
     if imgs.shape != (4, 32, 32, 3) or not bool(torch.isfinite(imgs).all()):
@@ -3124,6 +3290,10 @@ def main() -> int:
     # ---- 15. the batch-8000 crash-recovery rehearsal at a cut depth ----
     torch.cuda.empty_cache()
     rehearsal = rehearsal_phase(card)
+
+    # ---- 16. the layer-boundary kernels at batch 5000's shapes ----
+    torch.cuda.empty_cache()
+    boundaries = boundary_phase(card)
 
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
@@ -3271,6 +3441,14 @@ def main() -> int:
         "fused": {k: fused[k] for k in ("toy", "b256")},
         "replay": {k: fused["replay"][k] for k in ("toy", "b256")},
     })
+    for entry in boundaries:
+        entry.update(launches=launches["layer_boundary"],
+                     launches_from="phase 4: the main path's run, both modes together (16 "
+                                   "crossings a critic step, 17 a generator step, 4 a sample "
+                                   "grid's generator forward: 101 + 24 in its 3 epochs); "
+                                   "layer_boundary_plain must be 0",
+                     launches_plain=launches["layer_boundary_plain"])
+    kernels += boundaries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
+from otgan_tpu_torch.nn import layer_boundary
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -54,7 +55,8 @@ from otgan_tpu_torch.utils import tracing
 
 # every kernel's launch counter (dicts the wrappers add to at launch)
 COUNTERS = (sinkhorn_cuda.launches, sinkhorn_grid_cuda.launches,
-            sinkhorn_resident_cuda.launches, sinkhorn_step_cuda.launches)
+            sinkhorn_resident_cuda.launches, sinkhorn_step_cuda.launches,
+            layer_boundary.launches)
 
 
 class CaptureOutOfMemory(RuntimeError):

@@ -15,6 +15,14 @@ Layer names follow the JAX package's scope counters (``dense_0``,
 ``conv2d_0``...), so parameter names map one to one. The forwards are
 stages tagged with the JAX package's save points (``disc_c2..4``,
 ``gen_g1..3``) for ``--remat`` / ``--remat_policy`` (``nn/layers.py``).
+
+At bf16 on the card (``layer_boundary.engages``) each boundary between two layers runs
+as one operator (``nn/layer_boundary.py``): a layer stops before its bias
+(``pre_bias``), and the boundary adds it, applies the next conv's CReLU and
+SAME padding or the GLU and the next conv's upsample, and writes the next
+conv's input. The carries between stages, and so the save points, are then
+the layers' outputs before their bias; values and gradients are the plain
+layers'.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from otgan_tpu_torch.nn.layer_boundary import crelu_pad, engages, glu_upsample
 from otgan_tpu_torch.nn.layers import (
     Conv2d,
     Dense,
@@ -49,6 +58,19 @@ def _head(x: torch.Tensor) -> torch.Tensor:
     """CReLU concat, NHWC flatten, row L2 normalisation."""
     x = torch.relu(torch.cat([x, -x], dim=-1))
     return l2_normalize_rows(x.reshape(x.shape[0], -1))
+
+
+def _crelu_into(conv: Conv2d, y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``conv`` (pre-activation crelu) before its bias, on ``y``, the
+    previous conv's output before its ``bias``."""
+    return conv.pre_bias(crelu_pad(y, bias, conv.same_pads(*y.shape[1:3])), padded=True)
+
+
+def _glu_into(conv: Conv2d, y: torch.Tensor, bias: torch.Tensor, hw=None) -> torch.Tensor:
+    """``conv`` before its bias, on the GLU of ``y``, the previous layer's
+    output before its ``bias`` (``hw``: a dense layer's, viewed as (H, W, C)
+    after the gate), upsampled where ``conv`` upsamples."""
+    return conv.pre_bias(glu_upsample(y, bias, 2 if conv.upsample else 1, hw))
 
 
 class Discriminator(nn.Module):
@@ -77,7 +99,15 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images (B, 32, 32, 3) -> unit features (B, 32768)."""
+        c0, c1, c2, c3 = convs = (self.conv2d_0, self.conv2d_1, self.conv2d_2, self.conv2d_3)
         # disc_c2_half marks no boundary (the warning in __init__)
+        if engages(x, convs) and all(c.pre_activation == "crelu" for c in convs[1:]):
+            return run_stages([
+                (lambda x: _crelu_into(c1, c0.pre_bias(x), c0.b), ("disc_c2",)),
+                (lambda y: _crelu_into(c2, y, c1.b), ("disc_c3",)),
+                (lambda y: _crelu_into(c3, y, c2.b), ("disc_c4",)),
+                (lambda y: _head(y.float() + c3.b), ()),
+            ], x, self.remat, self.save)
         return run_stages([
             (lambda x: self.conv2d_1(self.conv2d_0(x)), ("disc_c2",)),
             (self.conv2d_2, ("disc_c3",)),
@@ -107,6 +137,16 @@ class Generator(nn.Module):
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         """Latents (B, 100) -> NHWC images (B, 32, 32, 3) in [-1, 1]."""
+        d0, c0, c1, c2, c3 = layers = (self.dense_0, self.conv2d_0, self.conv2d_1,
+                                       self.conv2d_2, self.conv2d_3)
+        if engages(u, layers):
+            return run_stages([
+                (d0.pre_bias, ()),
+                (lambda y: _glu_into(c0, y, d0.b, (4, 4)), ("gen_g1",)),
+                (lambda y: _glu_into(c1, y, c0.b), ("gen_g2",)),
+                (lambda y: _glu_into(c2, y, c1.b), ("gen_g3",)),
+                (lambda y: torch.tanh(_glu_into(c3, y, c2.b).float() + c3.b), ()),
+            ], u, self.remat, self.save)
         return run_stages([
             (lambda u: glu(self.dense_0(u), dim=1).reshape(u.shape[0], 4, 4, 1024), ()),
             (lambda x: glu(self.conv2d_0(x)), ("gen_g1",)),

@@ -23,6 +23,8 @@
   copy) for ``conv2d``.
 * ``compute_dtype`` casts the input and the weight before the matmul or
   conv and upcasts the result to float32; weight-norm math stays float32.
+  :meth:`~_WeightNormLayer.pre_bias` stops before the upcast and the bias,
+  for a model whose next boundary adds them (``nn/layer_boundary.py``).
   Where the cast commutes with the pre-activation (none, relu, crelu) a
   conv casts each list element before the concatenation: the same conv
   input, bitwise, built at the compute dtype's width.
@@ -200,22 +202,32 @@ class _WeightNormLayer(nn.Module):
         return self.V / torch.sqrt(torch.sum(self.V.square(), dim=dims, keepdim=True))
 
     def _apply_weight(self, xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The layer's product at the compute dtype, before the bias."""
         raise NotImplementedError
+
+    def _weight(self) -> torch.Tensor:
+        w = self._direction()
+        if self.weight_norm:
+            w = w * self.g.reshape((-1,) + (1,) * (self.V.dim() - 1))
+        return w
 
     def forward(self, x: TensorOrList) -> torch.Tensor:
         xin = self._input(x)
         if self.init_pending:
             return self._data_dependent_init(xin)
-        w = self._direction()
-        if self.weight_norm:
-            w = w * self.g.reshape((-1,) + (1,) * (self.V.dim() - 1))
-        return self._apply_weight(xin, w) + self.b
+        return self._apply_weight(xin, self._weight()).float() + self.b
+
+    def pre_bias(self, xin: torch.Tensor) -> torch.Tensor:
+        """The layer's output at the compute dtype before its bias, on an
+        input that needs no pre-activation: a first layer's, or one that
+        ``nn/layer_boundary.py`` built. The next boundary adds the bias."""
+        return self._apply_weight(xin, self._weight())
 
     @torch.no_grad()
     def _data_dependent_init(self, xin: torch.Tensor) -> torch.Tensor:
         """``utils/nn.py:108-162`` with the init pass actually executed; a
         plain layer folds the scale into V (``utils/nn.py:150-151``)."""
-        pre = self._apply_weight(xin, self._direction())
+        pre = self._apply_weight(xin, self._direction()).float()
         dims = tuple(range(pre.dim() - 1))
         std = torch.std(pre, dim=dims, correction=0)
         g = self.init_scale / (std + 1e-10)
@@ -248,7 +260,7 @@ class Dense(_WeightNormLayer):
 
     def _apply_weight(self, xin, w):
         cd = self.compute_dtype
-        return F.linear(xin.to(cd), w.to(cd)).float()
+        return F.linear(xin.to(cd), w.to(cd))
 
 
 class Conv2d(_WeightNormLayer):
@@ -279,22 +291,32 @@ class Conv2d(_WeightNormLayer):
                 x, None, cd if self.pre_activation in CAST_FIRST else None))
         return apply_pre_activation(x, self.pre_activation, cd)
 
-    def _apply_weight(self, xin, w):
+    def same_pads(self, h: int, w: int) -> Tuple[int, int, int, int]:
+        """XLA's SAME padding of an ``h`` x ``w`` input: (top, bottom,
+        left, right)."""
+        kh, kw = self.V.shape[2:]
+        return (same_padding(h, kh, self.stride[0], self.dilation)
+                + same_padding(w, kw, self.stride[1], self.dilation))
+
+    def pre_bias(self, xin: torch.Tensor, padded: bool = False) -> torch.Tensor:
+        """:meth:`_WeightNormLayer.pre_bias`; ``padded``: ``xin`` already
+        holds the SAME padding (the CReLU boundary writes it), so the conv
+        pads nothing."""
+        return self._apply_weight(xin, self._weight(), padded)
+
+    def _apply_weight(self, xin, w, padded: bool = False):
         cd = self.compute_dtype
-        _, h, wd, _ = xin.shape
-        kh, kw = w.shape[2:]
-        ph = same_padding(h, kh, self.stride[0], self.dilation)
-        pw = same_padding(wd, kw, self.stride[1], self.dilation)
         x = xin.to(cd)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            padding = (ph[0], pw[0])
+        pt, pb, pl, pr = (0, 0, 0, 0) if padded else self.same_pads(*xin.shape[1:3])
+        if pt == pb and pl == pr:
+            padding = (pt, pl)
         else:
-            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+            x = F.pad(x, (0, 0, pl, pr, pt, pb))
             padding = (0, 0)
         # NHWC -> channels-last NCHW view, and back: no copies
         out = F.conv2d(x.permute(0, 3, 1, 2), w.to(cd), stride=self.stride,
                        padding=padding, dilation=self.dilation)
-        return out.permute(0, 2, 3, 1).float()
+        return out.permute(0, 2, 3, 1)
 
 
 def weight_norm_layers(module: nn.Module) -> Iterable[_WeightNormLayer]:

@@ -127,6 +127,7 @@ from otgan_tpu_torch.engine import Engine, TrainState
 from otgan_tpu_torch.eval import fid as fid_mod
 from otgan_tpu_torch.eval import inception as inc
 from otgan_tpu_torch.eval.inception_net import InceptionV3
+from otgan_tpu_torch.nn import layer_boundary
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -192,14 +193,17 @@ def save_samples(engine: Engine, state: TrainState, path: str, seed: int, ema: b
 
 
 def kernel_launches() -> dict:
-    """The Sinkhorn kernels' launch counters, and their plain versions'."""
+    """The Sinkhorn kernels' launch counters, the layer-boundary kernels'
+    (one a forward or backward crossing), and their plain versions'."""
     return {"col_potential": sinkhorn_cuda.launches["kernel"],
             "col_potential_plain": sinkhorn_cuda.launches["plain"],
             "resident": sinkhorn_resident_cuda.launches["kernel"],
             "resident_plain": sinkhorn_resident_cuda.launches["plain"],
             "grid": sinkhorn_grid_cuda.launches["kernel"],
             "grid_plain": sinkhorn_grid_cuda.launches["plain"],
-            **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()}}
+            **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()},
+            "layer_boundary": layer_boundary.launches["kernel"],
+            "layer_boundary_plain": layer_boundary.launches["plain"]}
 
 
 def _prefetch_placed(items: Iterable[Tuple[int, object]], place: Callable,

@@ -1,15 +1,19 @@
 """The hand-written CUDA Sinkhorn kernels on a card (the column-potential
 loop, the row-sharded matcher's local step, the resident whole-loop kernel
 and the grid whole-loop kernel), against their plain PyTorch versions on the
-same logits, and the engine's phase marks (``csrc/phase_marks.cu``) in an
-eager, a captured and a profiled cycle. Every test here needs an NVIDIA GPU and
+same logits, the engine's phase marks (``csrc/phase_marks.cu``) in an
+eager, a captured and a profiled cycle, and the DCGAN's layer-boundary
+kernels (``csrc/layer_boundary.cu``) against the plain chain. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: P within 1e-5 and entropy within 1e-4, at lam = 500 on square
-matrices. Rectangular matrices have no fixed point with unit marginals:
+matrices. The layer boundaries: bit for bit, but for the bias gradient,
+whose float32 terms each side sums over all rows in its own order (the
+kernel in per-block partials, PyTorch's reduction in a tree): within 1e-5
+of the sum of the terms' magnitudes. Rectangular matrices have no fixed point with unit marginals:
 their potentials drift by log(M/N) per iteration, to |v| ~ 400 after 500
 iterations, where float32 spacing is 3e-5; those shapes run 100 iterations
 at a small aspect ratio.
@@ -21,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BOUNDARIES  # the DCGAN's boundaries at the main path's widths
+from otgan_tpu_torch.nn import layer_boundary as lb
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -788,3 +794,177 @@ def test_phase_marks_count_and_time_a_replayed_cycle(cuda_device, tmp_path):
     print(f"phase marks at batch 128: profiled {json.dumps(profiled)}; phase_device_ms "
           f"{json.dumps(phase_ms)}; mean mark "
           f"{sum(float(e['dur']) for e in marks) / len(marks):.2f} us")
+
+
+def _boundary_inputs(device, name, n, seed):
+    mode, shape, arg = BOUNDARIES[name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randn((n, *shape), generator=g, device=device).to(torch.bfloat16)
+    bias = 0.5 * torch.randn(shape[-1], generator=g, device=device)
+    args = (arg,) if mode == "crelu_pad" else arg
+    out_shape = getattr(lb, f"{mode}_plain")(y, bias, *args).shape
+    gx = (1e-3 * torch.randn(out_shape, generator=g, device=device)).to(torch.bfloat16)
+    return getattr(lb, mode), getattr(lb, f"{mode}_plain"), y, bias, args, gx
+
+
+def _through(op, y, bias, args, gx):
+    y, bias = y.detach().clone().requires_grad_(), bias.detach().clone().requires_grad_()
+    out = op(y, bias, *args)
+    gy, gb = torch.autograd.grad(out, (y, bias), gx)
+    return out, gy, gb
+
+
+def _bias_close(got, want, gy):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(gy.float().abs().sum()) / gy.shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BOUNDARIES))
+def test_layer_boundary_kernel_matches_plain(cuda_device, name):
+    """Each boundary on 512 images: the forward and the input gradient bit
+    for bit the plain chain's on the card, the bias gradient within the
+    tolerance above; one kernel call each way."""
+    op, plain, y, bias, args, gx = _boundary_inputs(cuda_device, name, 512, 0)
+    lb.reset_launch_counts()
+    out, gy, gb = _through(op, y, bias, args, gx)
+    torch.cuda.synchronize()
+    assert lb.launches == {"kernel": 2, "plain": 0}
+    want, want_gy, want_gb = _through(plain, y, bias, args, gx)
+    assert out.dtype == gy.dtype == torch.bfloat16 and gb.dtype == torch.float32
+    assert torch.equal(out, want) and torch.equal(gy, want_gy)
+    _bias_close(gb, want_gb, want_gy)
+
+
+@pytest.mark.cuda
+def test_layer_boundary_capture_replays_eager(cuda_device):
+    """A critic and the dense GLU boundary, forward and backward, captured in
+    one CUDA graph and replayed on new inputs copied into its buffers: bit
+    for bit the eager calls on those inputs, bias gradients included."""
+    cases = [_boundary_inputs(cuda_device, name, 64, 1) for name in ("critic_1_2", "gen_dense_0")]
+    leaves = [(y.requires_grad_(), bias.requires_grad_(), gx) for _, _, y, bias, _, gx in cases]
+
+    def run():
+        outs = []
+        for (op, _, _, _, args, _), (y, bias, gx) in zip(cases, leaves):
+            out = op(y, bias, *args)
+            outs += [out, *torch.autograd.grad(out, (y, bias), gx)]
+        return outs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run()
+    for seed in (2, 3):
+        fresh = [_boundary_inputs(cuda_device, name, 64, seed)
+                 for name in ("critic_1_2", "gen_dense_0")]
+        with torch.no_grad():
+            for (y, bias, gx), (_, _, y2, b2, _, gx2) in zip(leaves, fresh):
+                y.copy_(y2), bias.copy_(b2), gx.copy_(gx2)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = run()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager)), seed
+
+
+@pytest.mark.cuda
+def test_layer_boundary_bad_inputs_raise(cuda_device):
+    y = torch.randn(2, 4, 4, 16, device=cuda_device).to(torch.bfloat16)
+    b = torch.zeros(16, device=cuda_device)
+    pads = (1, 2, 1, 2)
+    misaligned = y.reshape(-1)[1:257].reshape(1, 4, 4, 16)  # contiguous, 2 bytes off
+    for bad in (lambda: lb.crelu_pad_cuda(y.float(), b, pads),         # dtype
+                lambda: lb.crelu_pad_cuda(y[..., :8], b[:8], pads),    # not contiguous
+                lambda: lb.crelu_pad_cuda(y[..., :12].contiguous(), b[:12], pads),  # C % 8
+                lambda: lb.crelu_pad_cuda(y, b[:8], pads),             # bias shape
+                lambda: lb.crelu_pad_cuda(y, b.cpu(), pads),           # bias device
+                lambda: lb.crelu_pad_cuda(y, b.double(), pads),        # bias dtype
+                lambda: lb.crelu_pad_cuda(y, b, (1, -1, 0, 0)),        # pads
+                lambda: lb.crelu_pad_cuda(y[0], b, pads),              # rank
+                lambda: lb.crelu_pad(misaligned, b, pads),             # alignment
+                lambda: lb.glu_upsample_cuda(y, b, 3),                 # factor
+                lambda: lb.glu_upsample_cuda(y, b[:8], 2),             # bias shape
+                lambda: lb.glu_upsample_cuda(y.reshape(2, -1), b, 2, (3, 3)),  # not 2 x 3 x 3 x C
+                lambda: lb.glu_upsample_cuda(y[..., :12].contiguous(), b[:12], 2)):  # C % 8
+        with pytest.raises(ValueError):
+            bad()
+    x = lb.crelu_pad_cuda(y, b, pads)
+    with pytest.raises(ValueError):  # the gradient of another shape
+        lb.crelu_pad_backward_cuda(x[:, 1:].contiguous(), x, y.shape, pads)
+    with pytest.raises(ValueError):  # a CPU tensor never launches
+        lb.crelu_pad_cuda(y.cpu(), b.cpu(), pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_layer_boundary_model_matches_the_layer_chain(cuda_device, remat):
+    """The bf16 critic and generator at batch 64 on the card, the boundaries
+    on their kernels against the layers' own chain (cuDNN deterministic, so
+    both run the same convolutions): outputs and every gradient bit for bit
+    but the biases', with and without remat."""
+    from unittest import mock
+
+    from otgan_tpu_torch.models import dcgan
+    from otgan_tpu_torch.nn.layers import reset_parameters
+
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for make, inp in ((dcgan.make_discriminator,
+                           torch.rand(64, 32, 32, 3, device=cuda_device).to(torch.bfloat16)),
+                          (dcgan.make_generator, dcgan.sample_latent(64, device=cuda_device))):
+            model = make(compute_dtype=torch.bfloat16, remat=remat,
+                         remat_policy="disc_c3,gen_g2" if remat else "")
+            reset_parameters(model, torch.Generator().manual_seed(0))
+            model.to(cuda_device)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.dim() == 1:
+                        p.add_(0.2 * torch.randn_like(p))
+            got = []
+            for fused in (True, False):
+                lb.reset_launch_counts()
+                with mock.patch.object(dcgan, "engages", lambda *a, f=fused: f):
+                    x = inp.clone().requires_grad_()
+                    out = model(x)
+                    w = torch.linspace(-1, 2, out.numel(), device=cuda_device)
+                    grads = torch.autograd.grad((out.float() * w.reshape(out.shape)).sum(),
+                                                [*model.parameters(), x])
+                torch.cuda.synchronize()
+                got.append((out, grads, dict(lb.launches)))
+            (out, grads, counts), (want, want_grads, plain_counts) = got
+            n = 3 if make is dcgan.make_discriminator else 4
+            assert counts == {"kernel": (3 if remat else 2) * n, "plain": 0}
+            assert plain_counts == {"kernel": 0, "plain": 0}
+            assert torch.equal(out, want)
+            for (name, _), g, w in zip(model.named_parameters(), grads, want_grads):
+                if name.endswith(".b"):
+                    torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().sum()))
+                else:
+                    assert torch.equal(g, w), name
+            assert torch.equal(grads[-1], want_grads[-1])
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gen", "disc"])
+def test_layer_boundary_counts_a_step(cuda_device, kind):
+    """One engine step of the bf16 DCGAN at batch 128: 17 kernel crossings
+    for a generator step, 16 for a critic step (PERF.md), no plain one."""
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+
+    eng = Engine(TrainConfig(model="dcgan", batch_size=128, nr_sinkhorn_iter=20), cuda_device)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (128, 32, 32, 3),
+                                                           dtype=np.uint8))
+    state, _ = eng.init_state(1, x)
+    lb.reset_launch_counts()
+    state, metrics = (eng.gen_step if kind == "gen" else eng.disc_step)(state, x)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics.dist))
+    assert lb.launches == {"kernel": 17 if kind == "gen" else 16, "plain": 0}

@@ -134,6 +134,7 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None)
     """This rank's outputs of the matrix-parallel matcher (kernel path) and
     the launches of its Sinkhorn tiers (``train.kernel_launches``)."""
     from otgan_tpu_torch import train
+    from otgan_tpu_torch.nn import layer_boundary
     from otgan_tpu_torch.ops import (
         sinkhorn_cuda,
         sinkhorn_grid_cuda,
@@ -142,7 +143,8 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None)
     )
     from otgan_tpu_torch.parallel import matching_matrix as mm
 
-    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
+                layer_boundary):
         mod.reset_launch_counts()
     make = (mm.make_matrix_parallel_single_batch_matcher if single
             else mm.make_matrix_parallel_two_batch_matcher)

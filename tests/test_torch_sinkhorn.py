@@ -170,13 +170,15 @@ def test_above_the_grid_ceiling_counts_col_potential_not_local_steps():
     ``col_potential_plain`` in the trainer's launches, and no local-step
     launch of either tier, though the card runs it on the local-step
     kernel."""
+    from otgan_tpu_torch.nn import layer_boundary
     from otgan_tpu_torch.ops import sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
     from otgan_tpu_torch.ops.sinkhorn import kernel_tier
     from otgan_tpu_torch.ops.sinkhorn_grid_cuda import H100_LIMITS
     from otgan_tpu_torch.train import kernel_launches
 
     assert kernel_tier(2641, 2641, H100_LIMITS) == "tiled"
-    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda):
+    for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
+                layer_boundary):
         mod.reset_launch_counts()
     cost = torch.from_numpy(_cost(11, 2641, 2641, d=8))
     p, e = sinkhorn_assignment(cost, 50.0, 1, use_pallas=True)
