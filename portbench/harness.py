@@ -11,7 +11,8 @@ data-dependent init, and the batches placed on the card as
 program's first call always does); what it produced is kept for the check.
 Set-up then runs calls until every schedule the window will meet (full
 cycles and epoch leftovers) has been captured as a CUDA graph, so nothing
-is captured or built in the window.
+is captured or built in the window; an engine that runs eagerly captures
+nothing, and its set-up ends once each kind of step has run.
 
 The window runs the loop as ``train.py`` runs it under these
 configurations (``log_every_steps`` 0): calls are dispatched one after
@@ -24,12 +25,13 @@ passed and counts every step it dispatched. A traced run profiles its first
 ``trace_groups`` calls with ``torch.profiler``.
 
 After the window one more call runs: the next call that ends an epoch, a
-replay of a graph that set-up captured and replayed (``replay_check``). The
-program's state is copied to the host before it and read after it. Then the
-program's graphs and state are freed, and the plain reference
-(``reference/train.py``) follows the first cycle from the seed and the
-check call from that copied state, on the same batches; ``check.py``
-compares the two.
+replay of a graph that set-up captured and replayed, or an eager call
+where the engine runs eagerly (``replay_check``). The program's state is
+copied to the host before it and read after it. Then the program's graphs
+and state are freed, and the plain reference (``reference/train.py``, with
+the configuration's model family, ``reference/<model>.py``) follows the
+first cycle from the seed and the check call from that copied state, on
+the same batches; ``check.py`` compares the two.
 """
 
 from __future__ import annotations
@@ -261,7 +263,8 @@ def first_cycle(prog: Program, spans: Spans) -> Tuple[dict, List[np.ndarray]]:
 
 def replay_check(prog: Program, spans: Spans) -> Tuple[dict, dict, List[np.ndarray]]:
     """After the window: the next call that ends an epoch, a replay of a
-    graph that set-up captured and replayed. Returns the program's state
+    graph that set-up captured and replayed (where the engine runs eagerly,
+    an eager call from the copied state). Returns the program's state
     before it (on the host), its reading (each step's dist and entropy, each
     leaf's change) and its host batches."""
     group = prog.engine.cycle_batches
@@ -288,13 +291,15 @@ def halves_ranks(cell) -> int:
 
 
 def reference_reading(cell, seed: int, x_init, batches, device) -> dict:
-    return reference.follow(reference_config(cell), seed, torch.from_numpy(x_init),
-                            [torch.from_numpy(b) for b in batches], device, halves_ranks(cell))
+    return reference.follow(reference_config(cell), cell.family, seed, torch.from_numpy(x_init),
+                            [torch.from_numpy(b) for b in batches], device, halves_ranks(cell),
+                            cell.chips)
 
 
 def reference_replay(cell, seed: int, state: dict, batches, device) -> dict:
-    return reference.resume(reference_config(cell), seed, state,
-                            [torch.from_numpy(b) for b in batches], device, halves_ranks(cell))
+    return reference.resume(reference_config(cell), cell.family, seed, state,
+                            [torch.from_numpy(b) for b in batches], device, halves_ranks(cell),
+                            cell.chips)
 
 
 def gather(values: List[float], device) -> List[List[float]]:
@@ -343,11 +348,19 @@ class Window:
 
 def setup(prog: Program, spans: Spans) -> None:
     """Calls until every schedule the window meets has been run (so
-    captured) since the first call; then waits for them."""
-    needed = schedules(prog.engine.is_disc_step, prog.per_epoch, prog.engine.cycle_batches,
+    captured) since the first call; then waits for them. An engine that
+    runs eagerly (``cycle_graphs`` off: ``--no_fused_cycle``, the CPU, or a
+    capture that ran out of memory; ``fused_cycle_reason`` says which)
+    captures nothing, so its set-up ends once each kind of step the window
+    meets has run: after the first call where that call held a whole
+    cycle."""
+    eng = prog.engine
+    needed = schedules(eng.is_disc_step, prog.per_epoch, eng.cycle_batches,
                        prog.cfg.nr_gen_per_disc + 1)
+    kinds = {k for schedule in needed for k in schedule}
     seen: set = set()
-    while not needed <= seen:
+    while not (needed <= seen if eng.cycle_graphs
+               else kinds <= {eng.is_disc_step(i) for i in range(prog.state.step)}):
         n = prog.call(spans)
         if n is not None:
             seen.add(prog.last_schedule(n))

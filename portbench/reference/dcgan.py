@@ -23,6 +23,9 @@ reference differs from the bf16 program by more than the control does
 by bf16's rounding). Activations are NHWC; a
 conv reads them as a channels-last NCHW view. Padding is SAME (an odd
 total pads one more at the high end).
+
+A model family of the plain reference (``reference/train.py`` names the
+interface): the configuration's ``model`` is ``dcgan``.
 """
 
 from __future__ import annotations
@@ -69,6 +72,17 @@ def draw(seed: int) -> Tuple[Params, Params, torch.Generator]:
             params[f"{name}.b"] = torch.zeros(shape[0])
         nets.append(params)
     return nets[0], nets[1], rng
+
+
+def init_latent(n: int, cpu_rng: torch.Generator) -> torch.Tensor:
+    """The data-dependent init's ``U(-1, 1)^100`` latents, drawn on the CPU
+    generator that :func:`draw` returns, after the parameters."""
+    return torch.rand((n, LATENT), generator=cpu_rng) * 2.0 - 1.0
+
+
+def latent(batch: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """One step's ``U(-1, 1)^100`` latents, drawn on ``generator``."""
+    return torch.rand((batch, LATENT), generator=generator, device=device) * 2.0 - 1.0
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

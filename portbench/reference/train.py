@@ -17,8 +17,40 @@ batches alone.
   1, mom1 0.5, mom2 0.999; the critic ascends through ``-lr``. EMA 0.999 of
   the generator after each of its steps.
 * The 5:1 (or n:1) schedule: step s is a critic step when ``s % (n + 1) ==
-  0``. Each step draws ``U(-1, 1)^100`` latents at the global batch from a
-  CUDA generator seeded ``seed + 1``.
+  0``. Each step draws its latents at the global batch from a CUDA
+  generator seeded ``seed + 1``.
+* Under ``grad_accum`` > 1, a step's gradient in the port's microbatches
+  (``Engine._microbatches``): each data rank's contiguous rows in
+  ``grad_accum`` blocks, rank by rank, so that a model that fits the card
+  only in microbatches fits here as it does in the port. The features of
+  the whole batch, the match, the distance and the entropy come first,
+  without grad; then each block computes its features again with grad
+  and back-propagates ``sum f_block * cotangent_block``, the cotangents
+  those the whole batch's loss injects; the blocks' gradients are summed.
+  The match being constant, the loss is a sum over rows, so the gradient
+  differs from the whole batch's by the order of its sums and, where a
+  layer's weight gradient comes in the compute dtype (bf16), by its
+  rounding once a block. Under ``grad_accum`` 1 each step runs over the
+  whole batch at once.
+
+The model is the configuration's family (its ``model``), a module of the
+plain reference, ``portbench/reference/<model>.py``, that
+``spec.load_family`` finds and the :class:`Trainer` is handed. It
+provides:
+
+* ``draw(seed) -> (disc, gen, cpu_rng)``: both nets' parameters (dicts of
+  CPU tensors in the port's order of ``named_parameters``) drawn from a CPU
+  generator seeded ``seed``, which is returned for the init's latents;
+* ``images(x_uint8, compute)``: a uint8 NHWC batch as the critic's input;
+* ``critic(params, x, compute, init=False)``: images to unit features (B,
+  d), row by row; ``init`` runs the data-dependent init in place;
+* ``generator(params, z, compute, init=False)``: latents to NHWC images;
+* ``init_latent(n, cpu_rng)``: the data-dependent init's latents, on the
+  CPU;
+* ``latent(batch, generator, device)``: one step's latents, drawn on
+  ``generator``.
+
+A latent is a tensor, or a tuple of tensors, whose first axis is the batch.
 
 :func:`follow` runs the first steps from the seed, :func:`resume` the
 steps of a later call from a state at its step, and each returns what the
@@ -27,13 +59,13 @@ check compares. Nothing here imports the measured program.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from portbench.reference import dcgan
-
 Params = Dict[str, torch.Tensor]
+Latent = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 def cosine_cost(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
@@ -133,26 +165,50 @@ class Adam:
         self.t.add_(1.0)
 
 
-class Trainer:
-    """The reference's state: both nets, their Adam states, the EMA."""
+def microbatches(batch: int, chips: int, accum: int) -> List[slice]:
+    """The port's ``--grad_accum`` microbatches as rows of the global batch:
+    each of ``chips`` data ranks' contiguous ``batch / chips`` rows cut at
+    ``n * i // accum`` (``Engine._microbatches``), rank by rank."""
+    n = batch // chips
+    return [slice(k * n + n * i // accum, k * n + n * (i + 1) // accum)
+            for k in range(chips) for i in range(accum)]
 
-    def __init__(self, cfg: dict, seed: int, device: torch.device, ranks: int = 1):
-        self.cfg, self.device, self.ranks = cfg, device, ranks
+
+def latent_rows(z: Latent, rows: slice) -> Latent:
+    """Rows ``rows`` of a latent (a tensor, or a tuple of tensors)."""
+    return tuple(t[rows] for t in z) if isinstance(z, tuple) else z[rows]
+
+
+def latent_to(z: Latent, device: torch.device) -> Latent:
+    return tuple(t.to(device) for t in z) if isinstance(z, tuple) else z.to(device)
+
+
+class Trainer:
+    """The reference's state: both nets of ``family``, their Adam states,
+    the EMA. ``ranks``: those whose own rows the two-batch halves come from
+    (:func:`halves_order`); ``chips``: the data ranks whose rows the port's
+    microbatches cut (:func:`microbatches`)."""
+
+    def __init__(self, cfg: dict, family: ModuleType, seed: int, device: torch.device,
+                 ranks: int = 1, chips: int = 1):
+        self.cfg, self.family, self.device, self.ranks = cfg, family, device, ranks
         self.compute = getattr(torch, cfg["compute_dtype"])
+        accum = cfg["grad_accum"]
+        self.blocks = None if accum == 1 else microbatches(cfg["batch_size"], chips, accum)
         self.rng = torch.Generator(device=device).manual_seed(seed + 1)
         self.order = halves_order(cfg["batch_size"], ranks)
         self.step = 0
 
     def init(self, seed: int, x_init: torch.Tensor) -> None:
         """V from the seed, then the data-dependent init on ``x_init``."""
-        cfg, device = self.cfg, self.device
-        disc, gen, cpu_rng = dcgan.draw(seed)
+        cfg, device, fam = self.cfg, self.device, self.family
+        disc, gen, cpu_rng = fam.draw(seed)
         self.disc = {k: t.to(device) for k, t in disc.items()}
         self.gen = {k: t.to(device) for k, t in gen.items()}
-        dcgan.critic(self.disc, dcgan.images(x_init.to(device), self.compute), self.compute,
-                     init=True)
-        z = torch.rand((x_init.shape[0], dcgan.LATENT), generator=cpu_rng) * 2.0 - 1.0
-        dcgan.generator(self.gen, z.to(device), self.compute, init=True)
+        fam.critic(self.disc, fam.images(x_init.to(device), self.compute), self.compute,
+                   init=True)
+        z = fam.init_latent(x_init.shape[0], cpu_rng)
+        fam.generator(self.gen, latent_to(z, device), self.compute, init=True)
         self.ema = {k: t.clone() for k, t in self.gen.items()}
         self.gen_opt = Adam(self.gen, cfg["adam_mom1"], cfg["adam_mom2"])
         self.disc_opt = Adam(self.disc, cfg["adam_mom1"], cfg["adam_mom2"])
@@ -176,10 +232,9 @@ class Trainer:
             self.latents()
         self.step = state["step"]
 
-    def latents(self) -> torch.Tensor:
-        """One step's ``U(-1, 1)^100`` latents at the global batch."""
-        return torch.rand((self.cfg["batch_size"], dcgan.LATENT), generator=self.rng,
-                          device=self.device) * 2.0 - 1.0
+    def latents(self) -> Latent:
+        """One step's latents at the global batch."""
+        return self.family.latent(self.cfg["batch_size"], self.rng, self.device)
 
     def _match(self, fa, fb):
         if self.order is not None:
@@ -188,24 +243,50 @@ class Trainer:
         m = match(fa, fb, self.cfg["sinkhorn_lambda"], self.cfg["nr_sinkhorn_iter"])
         return fa, fb, m
 
+    def _in_rows(self, cot: torch.Tensor) -> torch.Tensor:
+        """A cotangent of the matched (reordered) rows, in batch row order."""
+        if self.order is None:
+            return cot
+        out = torch.empty_like(cot)
+        out[self.order.to(cot.device)] = cot
+        return out
+
+    def _block_grads(self, params: List[torch.Tensor],
+                     loss: Callable[[slice], torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """The gradient of ``sum_blocks loss(block)`` over the blocks, one
+        block's graph at a time."""
+        total = None
+        for rows in self.blocks:
+            grads = torch.autograd.grad(loss(rows), params)
+            total = list(grads) if total is None else [t.add_(g) for t, g in zip(total, grads)]
+        return tuple(total)
+
     def train_step(self, x_uint8: torch.Tensor) -> dict:
         """One step on a uint8 NHWC batch: ``{"disc", "dist", "entropy",
         "grads"}`` (the gradient the optimizer got, by leaf)."""
-        cfg, cd = self.cfg, self.compute
+        cfg, cd, fam = self.cfg, self.compute, self.family
         is_disc = self.step % (cfg["nr_gen_per_disc"] + 1) == 0
+        blocks = self.blocks is not None
         z = self.latents()
-        x = dcgan.images(x_uint8.to(self.device), cd)
+        x = fam.images(x_uint8.to(self.device), cd)
         if is_disc:
             params = [p.requires_grad_(True) for p in self.disc.values()]
             with torch.no_grad():
-                fake = dcgan.generator(self.gen, z, cd)
-            f_fake = dcgan.critic(self.disc, fake, cd)
-            f_dat = dcgan.critic(self.disc, x, cd)
+                fake = fam.generator(self.gen, z, cd)
+            with torch.set_grad_enabled(not blocks):
+                f_fake = fam.critic(self.disc, fake, cd)
+                f_dat = fam.critic(self.disc, x, cd)
             fa, fb, (a_a, b_b, a_b, b_a, ent) = self._match(f_fake, f_dat)
             dist = distance(fa.detach(), fb.detach(), a_a, b_b, a_b)
             scale = distance_scale(fa, fb, a_a, b_b, a_b)
-            loss = torch.sum(fb * (b_b - b_a)) + torch.sum(fa * (a_a - a_b))
-            grads = torch.autograd.grad(loss, params)
+            if blocks:
+                c_fake, c_dat = self._in_rows(a_a - a_b), self._in_rows(b_b - b_a)
+                grads = self._block_grads(params, lambda r: (
+                    torch.sum(fam.critic(self.disc, x[r], cd) * c_dat[r])
+                    + torch.sum(fam.critic(self.disc, fake[r], cd) * c_fake[r])))
+            else:
+                loss = torch.sum(fb * (b_b - b_a)) + torch.sum(fa * (a_a - a_b))
+                grads = torch.autograd.grad(loss, params)
             for p in params:
                 p.requires_grad_(False)
             grads = dict(zip(self.disc, grads))
@@ -213,13 +294,19 @@ class Trainer:
         else:
             params = [p.requires_grad_(True) for p in self.gen.values()]
             with torch.no_grad():
-                f_dat = dcgan.critic(self.disc, x, cd)
-            f_gen = dcgan.critic(self.disc, dcgan.generator(self.gen, z, cd), cd)
+                f_dat = fam.critic(self.disc, x, cd)
+            with torch.set_grad_enabled(not blocks):
+                f_gen = fam.critic(self.disc, fam.generator(self.gen, z, cd), cd)
             fa, fb, (a_a, b_b, a_b, b_a, ent) = self._match(f_gen, f_dat)
             dist = distance(fa.detach(), fb, a_a, b_b, a_b)
             scale = distance_scale(fa, fb, a_a, b_b, a_b)
-            loss = torch.sum(fa * (a_a - a_b))
-            grads = torch.autograd.grad(loss, params)
+            if blocks:
+                c_gen = self._in_rows(a_a - a_b)
+                grads = self._block_grads(params, lambda r: torch.sum(fam.critic(
+                    self.disc, fam.generator(self.gen, latent_rows(z, r), cd), cd) * c_gen[r]))
+            else:
+                loss = torch.sum(fa * (a_a - a_b))
+                grads = torch.autograd.grad(loss, params)
             for p in params:
                 p.requires_grad_(False)
             grads = dict(zip(self.gen, grads))
@@ -269,22 +356,25 @@ def _plain_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def follow(cfg: dict, seed: int, x_init: torch.Tensor, batches: Sequence[torch.Tensor],
-           device: torch.device, ranks: int = 1) -> dict:
-    """The reference's reading (:func:`_steps`) of the first steps, on
-    ``batches``, from the seed and the init batch ``x_init``."""
+def follow(cfg: dict, family: ModuleType, seed: int, x_init: torch.Tensor,
+           batches: Sequence[torch.Tensor], device: torch.device, ranks: int = 1,
+           chips: int = 1) -> dict:
+    """The reference's reading (:func:`_steps`) of the first steps of
+    ``family``, on ``batches``, from the seed and the init batch
+    ``x_init``."""
     _plain_precision()
-    tr = Trainer(cfg, seed, device, ranks)
+    tr = Trainer(cfg, family, seed, device, ranks, chips)
     tr.init(seed, x_init)
     return _steps(tr, batches)
 
 
-def resume(cfg: dict, seed: int, state: dict, batches: Sequence[torch.Tensor],
-           device: torch.device, ranks: int = 1) -> dict:
-    """The reference's reading (:func:`_steps`) of the steps on ``batches``
-    from ``state`` at its step (:meth:`Trainer.load`), the latents drawn
-    from the seed."""
+def resume(cfg: dict, family: ModuleType, seed: int, state: dict,
+           batches: Sequence[torch.Tensor], device: torch.device, ranks: int = 1,
+           chips: int = 1) -> dict:
+    """The reference's reading (:func:`_steps`) of ``family``'s steps on
+    ``batches`` from ``state`` at its step (:meth:`Trainer.load`), the
+    latents drawn from the seed."""
     _plain_precision()
-    tr = Trainer(cfg, seed, device, ranks)
+    tr = Trainer(cfg, family, seed, device, ranks, chips)
     tr.load(state)
     return _steps(tr, batches)

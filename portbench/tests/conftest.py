@@ -21,13 +21,14 @@ TINY = "tiny.t8"
 
 def make_root(path: str, limits: dict) -> str:
     """A benchmark root under ``path``: BENCHMARK.json with one cell,
-    ``tiny.t8``, and its configuration, traffic, limits and the metric
-    readers of the real benchmark."""
+    ``tiny.t8``, and its configuration, traffic, limits, and the metric
+    readers and model families' references of the real benchmark."""
     base = os.path.join(path, "portbench")
     for sub in ("configs", "traffic", "workloads"):
         os.makedirs(os.path.join(base, sub), exist_ok=True)
-    shutil.copytree(os.path.join(PORTBENCH, "metrics"), os.path.join(base, "metrics"),
-                    dirs_exist_ok=True)
+    for sub in ("metrics", "reference"):
+        shutil.copytree(os.path.join(PORTBENCH, sub), os.path.join(base, sub), dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(PORTBENCH, "configs", "dcgan_train_py.json")) as f:
         cfg = json.load(f)
     cfg.update(name="tiny", batch_size=4, nr_sinkhorn_iter=5)
