@@ -1263,8 +1263,12 @@ def epoch_records(run_dir: str) -> list:
 def check_tier_path(launches: dict, tier: str, what: str, want=None) -> None:
     """The run launched the ``tier`` kernel (``want`` times, when given)
     and no other Sinkhorn kernel, and no plain version of any kernel (the
-    layer boundaries' kernels run beside every tier)."""
-    others = {k: n for k, n in launches.items() if k not in (tier, "layer_boundary")}
+    layer boundaries' kernels run beside every tier; the main path's counts,
+    ``tracing.counts``, are no kernel's)."""
+    from otgan_tpu_torch.utils.tracing import counts
+
+    others = {k: n for k, n in launches.items()
+              if k not in (tier, "layer_boundary", *counts)}
     if launches[tier] < 1 or (want is not None and launches[tier] != want) or any(
             others.values()):
         raise AssertionError(f"{what} did not run the {tier} tier alone: {launches}")
@@ -1669,14 +1673,16 @@ def traced_cycle(run_dir: str, flags: list) -> tuple:
 
 def hold_marks(summary: dict, report: dict, kinds: list, what: str, card: str) -> dict:
     """The engine's phase marks in one traced run whose steps were of
-    ``kinds``: the tally counts one a step in each of the five slots of its
-    kind, every one of them under the profiler; the trace holds as many
+    ``kinds`` (whole batches): the tally counts one a step in each of the
+    five slots of its kind and none in ``refeatures``, every one of them
+    under the profiler; the trace holds as many
     marks; each slot's tally agrees with the interval between its marks in
     the trace within MARK_REL or MARK_ABS_MS; the kernels outside the four
     phases' marks take under OTHER_SHARE of the kernels' time."""
-    from otgan_tpu_torch.utils.tracing import KINDS, SLOTS
+    from otgan_tpu_torch.utils.tracing import KINDS, NESTED_SPANS, SLOTS
 
-    want = {kind: dict.fromkeys(SLOTS, kinds.count(kind)) for kind in KINDS}
+    want = {kind: {slot: 0 if slot in NESTED_SPANS else kinds.count(kind) for slot in SLOTS}
+            for kind in KINDS}
     counts = {key: {kind: {slot: v["count"] for slot, v in slots.items()}
                     for kind, slots in report[key].items()}
               for key in ("device_ms", "profiled_device_ms")}

@@ -12,15 +12,18 @@
 // its slot; the matching end mark adds the time since to the slot's total and
 // one to its count. Stream order puts every kernel of the phase between the
 // two. Slots nest: a step's slot runs from its first mark to its last and
-// holds its phases. Each (kind, slot, edge) is its own instantiation, so a
-// profiler trace names every boundary, e.g. ``otgan_mark<disc, match, begin>``.
+// holds its phases; ``refeatures`` (each microbatch's forward under autograd
+// under ``--grad_accum``) lies inside ``loss_backward``. Each (kind, slot,
+// edge) is its own instantiation, so a profiler trace names every boundary,
+// e.g. ``otgan_mark<disc, match, begin>``.
 //
 // Bound: launch latency alone (one thread, one store or two read-modify-
-// writes of 8 bytes), ~1-2 us a mark in a graph; ten marks a step.
+// writes of 8 bytes), ~1-2 us a mark in a graph; ten marks a step, two more
+// a microbatch under ``--grad_accum``.
 //
-// Slots: unsigned long long [2 kinds][5 slots][3] = {begin ns, total ns,
-// count}; kinds gen, disc; slots features, match, loss_backward, update, step
-// (``tracing.KINDS``, ``tracing.SLOTS``).
+// Slots: unsigned long long [2 kinds][6 slots][3] = {begin ns, total ns,
+// count}; kinds gen, disc; slots features, match, loss_backward, update, step,
+// refeatures (``tracing.KINDS``, ``tracing.SLOTS``).
 
 #include <cuda_runtime.h>
 
@@ -31,6 +34,7 @@ struct match {};
 struct loss_backward {};
 struct update {};
 struct step {};
+struct refeatures {};
 struct begin {};
 struct end {};
 
@@ -42,11 +46,12 @@ template <> struct index_of<match> { static constexpr int value = 1; };
 template <> struct index_of<loss_backward> { static constexpr int value = 2; };
 template <> struct index_of<update> { static constexpr int value = 3; };
 template <> struct index_of<step> { static constexpr int value = 4; };
+template <> struct index_of<refeatures> { static constexpr int value = 5; };
 template <> struct index_of<begin> { static constexpr int value = 0; };
 template <> struct index_of<end> { static constexpr int value = 1; };
 
 constexpr int KINDS = 2;
-constexpr int SLOTS = 5;
+constexpr int SLOTS = 6;
 
 template <class K, class P, class E>
 __global__ void otgan_mark(unsigned long long* slots) {
@@ -66,7 +71,7 @@ typedef void (*mark_fn)(unsigned long long*);
 #define OTGAN_EDGES(K, P) {otgan_mark<K, P, begin>, otgan_mark<K, P, end>}
 #define OTGAN_SLOTS(K)                                                              \
   {OTGAN_EDGES(K, features), OTGAN_EDGES(K, match), OTGAN_EDGES(K, loss_backward), \
-   OTGAN_EDGES(K, update), OTGAN_EDGES(K, step)}
+   OTGAN_EDGES(K, update), OTGAN_EDGES(K, step), OTGAN_EDGES(K, refeatures)}
 
 static const mark_fn MARKS[KINDS][SLOTS][2] = {OTGAN_SLOTS(gen), OTGAN_SLOTS(disc)};
 

@@ -53,10 +53,11 @@ from otgan_tpu_torch.ops import (
 )
 from otgan_tpu_torch.utils import tracing
 
-# every kernel's launch counter (dicts the wrappers add to at launch)
+# every kernel's launch counter (dicts the wrappers add to at launch), and
+# the main path's counts
 COUNTERS = (sinkhorn_cuda.launches, sinkhorn_grid_cuda.launches,
             sinkhorn_resident_cuda.launches, sinkhorn_step_cuda.launches,
-            layer_boundary.launches)
+            layer_boundary.launches, tracing.counts)
 
 
 class CaptureOutOfMemory(RuntimeError):

@@ -39,10 +39,12 @@ time; the batch stays uint8 on the device until its microbatch is ingested.
 
 Each step is named (``utils/tracing.py::phase``): ``gen_step`` or
 ``disc_step``, inside them ``features``, ``match``, ``loss_backward`` and
-``update``, each a host span for ``torch.profiler`` (``--profile_dir``) and
-a pair of marks on the device that a captured cycle keeps and every replay
-runs, so ``tracing.device_ms`` counts the device time of each phase of each
-kind of step, eager or replayed. ``--debug_nans`` checks
+``update`` (under ``--grad_accum``, inside ``loss_backward``, each
+microbatch's forward under autograd as ``refeatures``), each a host span
+for ``torch.profiler`` (``--profile_dir``) and a pair of marks on the
+device that a captured cycle keeps and every replay runs, so
+``tracing.device_ms`` counts the device time of each phase of each kind of
+step, eager or replayed. ``--debug_nans`` checks
 the loss, the gradients, ``dist`` and ``entropy`` of every step before its
 update and raises ``FloatingPointError`` at the first non-finite one (in a
 captured cycle, from the graph's flags after the replay); without it a
@@ -566,11 +568,14 @@ class Engine:
         with tracing.phase("gen_step", self.device):
             z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
             x = self._local_data(x_data)
-            grad_fn = self._gen_grads_accum if self.cfg.grad_accum > 1 else self._gen_grads
-            grads, loss, distance, m = grad_fn(state, x, z)
+            grads, loss, distance, m = self._gen_grads(state, x, z)
             return state, self._finish(state, "gen", grads, loss, distance, m)
 
     def _gen_grads(self, state: TrainState, x, z):
+        """The generator step's gradients, loss, distance and match: over
+        the whole batch, or in microbatches under ``--grad_accum``."""
+        if self.cfg.grad_accum > 1:
+            return self._gen_grads_accum(state, x, z)
         params = list(state.gen.parameters())
         # the critic stays frozen through the backward pass too: under
         # --remat its segments recompute there and must record what the
@@ -606,8 +611,10 @@ class Engine:
         grads, loss = None, 0.0
         with tracing.phase("loss_backward"):
             for sl in mbs:
+                tracing.counts["microbatch"] += 1
                 with _frozen(state.disc):
-                    f = state.disc(state.gen(map_latent(lambda t: t[sl], z)))
+                    with tracing.phase("refeatures"):
+                        f = state.disc(state.gen(map_latent(lambda t: t[sl], z)))
                     mb_loss = med_generator_loss(f, _rows(m, sl))
                     g = torch.autograd.grad(mb_loss, params)
                     grads = _accumulate(grads, g)
@@ -621,11 +628,13 @@ class Engine:
         with tracing.phase("disc_step", self.device):
             z = self._local_latent(self._latent(state, len(x_data) * self.pcount, z))
             x = self._local_data(x_data)
-            grad_fn = self._disc_grads_accum if self.cfg.grad_accum > 1 else self._disc_grads
-            grads, loss, distance, m = grad_fn(state, x, z)
+            grads, loss, distance, m = self._disc_grads(state, x, z)
             return state, self._finish(state, "disc", grads, loss, distance, m)
 
     def _disc_grads(self, state: TrainState, x, z):
+        """The critic step's gradients, as :meth:`_gen_grads`."""
+        if self.cfg.grad_accum > 1:
+            return self._disc_grads_accum(state, x, z)
         params = list(state.disc.parameters())
         with tracing.phase("features"):
             x_fake = self.sample(state, z, ema=self.cfg.train_disc_against_ema)
@@ -661,8 +670,10 @@ class Engine:
         grads, loss = None, 0.0
         with tracing.phase("loss_backward"):
             for sl, xf in zip(mbs, x_fake):
-                mb_loss = med_discriminator_loss(state.disc(xf),
-                                                 state.disc(self.ingest(x[sl])), _rows(m, sl))
+                tracing.counts["microbatch"] += 1
+                with tracing.phase("refeatures"):
+                    f_fake, f_dat = state.disc(xf), state.disc(self.ingest(x[sl]))
+                mb_loss = med_discriminator_loss(f_fake, f_dat, _rows(m, sl))
                 g = torch.autograd.grad(mb_loss, params)
                 grads = _accumulate(grads, g)
                 loss = loss + mb_loss.detach()

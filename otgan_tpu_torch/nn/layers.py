@@ -17,7 +17,8 @@
   double the fan-in. A conv takes a list of tensors (the DenseNet's dense
   connectivity): the 'c' variants interleave ``[x0, -x0, x1, -x1, ...]``
   per element before one concatenation, so V's input channels are in the
-  JAX package's order.
+  JAX package's order. Each list a conv concatenates adds one to
+  ``tracing.counts["dense_concat"]``.
 * Activations are NHWC at every public function, as in the JAX package.
   Inside, the NHWC tensor is viewed as a channels-last NCHW tensor (no
   copy) for ``conv2d``.
@@ -43,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from otgan_tpu_torch.utils import tracing
 
 PRE_ACTIVATIONS = (None, "relu", "elu", "crelu", "celu")
 # pre-activations that commute with rounding to a narrower float: each is
@@ -286,6 +289,8 @@ class Conv2d(_WeightNormLayer):
 
     def _input(self, x):
         cd = self.compute_dtype
+        if isinstance(x, (list, tuple)):
+            tracing.counts["dense_concat"] += 1
         if self.upsample:  # concatenate (cast first where that commutes), then upsample
             x = nn_upsample(apply_pre_activation(
                 x, None, cd if self.pre_activation in CAST_FIRST else None))

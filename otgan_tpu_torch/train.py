@@ -194,7 +194,9 @@ def save_samples(engine: Engine, state: TrainState, path: str, seed: int, ema: b
 
 def kernel_launches() -> dict:
     """The Sinkhorn kernels' launch counters, the layer-boundary kernels'
-    (one a forward or backward crossing), and their plain versions'."""
+    (one a forward or backward crossing), their plain versions', and the
+    main path's counts (``tracing.counts``: microbatch passes, list inputs
+    a conv concatenated)."""
     return {"col_potential": sinkhorn_cuda.launches["kernel"],
             "col_potential_plain": sinkhorn_cuda.launches["plain"],
             "resident": sinkhorn_resident_cuda.launches["kernel"],
@@ -203,7 +205,8 @@ def kernel_launches() -> dict:
             "grid_plain": sinkhorn_grid_cuda.launches["plain"],
             **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()},
             "layer_boundary": layer_boundary.launches["kernel"],
-            "layer_boundary_plain": layer_boundary.launches["plain"]}
+            "layer_boundary_plain": layer_boundary.launches["plain"],
+            **tracing.counts}
 
 
 def _prefetch_placed(items: Iterable[Tuple[int, object]], place: Callable,

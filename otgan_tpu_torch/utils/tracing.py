@@ -17,8 +17,10 @@ of ``csrc/phase_marks.cu`` on the current stream, which a CUDA graph records
 at capture and runs in every replay, so a replayed cycle (one host span,
 ``cycle``) is counted as an eager one; on the CPU the same state machine on
 the host clock. A device's tally holds, for each kind of step (``KINDS``)
-and each slot (``SLOTS``: the four phases and the whole step, from its first
-mark to its last), the time between the slot's marks and their count.
+and each slot (``SLOTS``: the four phases, the whole step, from its first
+mark to its last, and ``refeatures``, each microbatch's forward under
+autograd inside ``loss_backward``, so a part of it, marked only under
+``--grad_accum`` > 1), the time between the slot's marks and their count.
 :func:`device_ms` reads the running totals; :func:`profiled_device_ms` those
 of the calls made while a profiler recorded: :func:`note_call`, at the
 start of each ``Engine.cycle_step``, copies the tally on the device at the
@@ -27,7 +29,8 @@ call waits for the host.
 
 :func:`summarize` reads a trace back: device kernels by total time, the host
 time of each span, the device time of the kernels between each phase's
-marks on the device timeline, each slot's marked time, and the card's idle
+marks on the device timeline (a kernel goes to the innermost slot whose
+marks hold it), each slot's marked time, and the card's idle
 intervals, each named by the trainer's span that covers it; :func:`step_gaps`
 the card's idle time between consecutive steps, delimited by their marks.
 """
@@ -51,10 +54,17 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 STEP_SPANS = ("gen_step", "disc_step")
 PHASE_SPANS = ("features", "match", "loss_backward", "update")
+# marked inside a phase: each microbatch's forward under autograd, inside
+# loss_backward (``--grad_accum`` > 1 only)
+NESTED_SPANS = ("refeatures",)
 KINDS = ("gen", "disc")  # a step span's kind: its name without "_step"
-SLOTS = PHASE_SPANS + ("step",)  # csrc/phase_marks.cu's slot order
+SLOTS = PHASE_SPANS + ("step",) + NESTED_SPANS  # csrc/phase_marks.cu's slot order
 TRAINER_SPANS = ("data_wait", "dispatch", "epoch_end", "readback", "samples", "eval",
                  "checkpoint")
+# what the main path did, beyond the kernels' launches (``train.kernel_launches``;
+# a replay adds its capture's counts): ``microbatch``, each microbatch pass of
+# a step's loss_backward; ``dense_concat``, each list input a conv concatenates
+counts = {"microbatch": 0, "dense_concat": 0}
 # a mark's kernel name in a trace, e.g. "void otgan_mark<disc, match, begin>(...)"
 MARK = re.compile(r"otgan_mark<\s*(\w+)\s*,\s*(\w+)\s*,\s*(begin|end)\s*>")
 
@@ -189,13 +199,14 @@ def _mark_cuda(acc: torch.Tensor, kind: int, slot: int, edge: int) -> None:
 def phase(name: str, device=None):
     """The host span ``name`` and, for a step (``STEP_SPANS``, on
     ``device``) or a phase of the step open on this thread
-    (``PHASE_SPANS``), a mark at its start and at its end. A body that
-    raises leaves its end unmarked: the slot counts only what completed."""
+    (``PHASE_SPANS``, ``NESTED_SPANS``), a mark at its start and at its
+    end. A body that raises leaves its end unmarked: the slot counts only
+    what completed."""
     if name in STEP_SPANS:
         where = (tally(device), KINDS.index(name[:-len("_step")]))
     else:
         steps = getattr(_open, "steps", None)
-        where = steps[-1] if steps and name in PHASE_SPANS else None
+        where = steps[-1] if steps and name in PHASE_SPANS + NESTED_SPANS else None
     with record_function(name):
         if where is None:
             yield
@@ -251,6 +262,12 @@ def per_step(now: dict, before: dict) -> dict:
         if n:
             out[kind] = {s: (v["ms"] - before[kind][s]["ms"]) / n for s, v in slots.items()}
     return out
+
+
+def reset_counts() -> None:
+    """Zero the main path's counts (``counts``)."""
+    for k in counts:
+        counts[k] = 0
 
 
 def reset() -> None:
@@ -319,13 +336,15 @@ def summarize(path: str, top: int = 10) -> dict:
     total ms] of every device kernel), ``top`` (the ``top`` kernels by total
     time), ``spans`` (name -> [count, total host ms] of each step and phase
     span), ``phase_device_ms`` (the device time of the kernels that start
-    between each phase's marks on the device timeline, eager or replayed;
-    ``other`` for the rest, the marks included), ``marks`` (``kind.slot``
+    between each phase's marks on the device timeline, eager or replayed,
+    each kernel given to the innermost slot that holds it, so
+    ``loss_backward`` leaves out its ``refeatures``; ``other`` for the
+    rest, the marks included), ``marks`` (``kind.slot``
     -> [count, ms from its begin mark's start to its end mark's start]),
     ``device_ms``, and ``idle_gaps`` (:func:`idle_gaps`)."""
     events = _events(path)
     kernels = defaultdict(lambda: [0, 0.0])
-    spans = {name: [0, 0.0] for name in STEP_SPANS + PHASE_SPANS}
+    spans = {name: [0, 0.0] for name in STEP_SPANS + PHASE_SPANS + NESTED_SPANS}
     for e in events:
         cat, name, dur = e.get("cat", ""), e["name"], float(e.get("dur", 0.0))
         if cat == "kernel":
@@ -335,17 +354,20 @@ def summarize(path: str, top: int = 10) -> dict:
             spans[name][0] += 1
             spans[name][1] += dur / 1e3
     marked = _marked(events)
-    phases = [(a, b, slot) for a, b, _, _, slot in marked if slot in PHASE_SPANS]
-    starts = [p[0] for p in phases]
+    # innermost first: slots of one level do not overlap
+    levels = []
+    for names in (NESTED_SPANS, PHASE_SPANS):
+        phases = [(a, b, slot) for a, b, _, _, slot in marked if slot in names]
+        levels.append(([p[0] for p in phases], phases))
     marks = defaultdict(lambda: [0, 0.0])
     for a, b, _, kind, slot in marked:
         marks[f"{kind}.{slot}"][0] += 1
         marks[f"{kind}.{slot}"][1] += (b - a) / 1e3
-    phase_ms = {name: 0.0 for name in PHASE_SPANS + ("other",)}
+    phase_ms = {name: 0.0 for name in PHASE_SPANS + NESTED_SPANS + ("other",)}
     for e in events:
         if e.get("cat") != "kernel":
             continue
-        where = "other" if MARK.search(e["name"]) else _phase_at(phases, starts, float(e["ts"]))
+        where = "other" if MARK.search(e["name"]) else _phase_at(levels, float(e["ts"]))
         phase_ms[where] += float(e.get("dur", 0.0)) / 1e3
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     return {
@@ -359,12 +381,14 @@ def summarize(path: str, top: int = 10) -> dict:
     }
 
 
-def _phase_at(phases, starts, ts: float) -> str:
-    """The phase whose marks hold device time ``ts`` (phases do not
-    overlap)."""
-    i = bisect.bisect_right(starts, ts) - 1
-    if i >= 0 and ts < phases[i][1]:
-        return phases[i][2]
+def _phase_at(levels, ts: float) -> str:
+    """The innermost slot whose marks hold device time ``ts``: ``levels``
+    lists each level's begins and ``(begin, end, slot)`` in time order,
+    innermost first."""
+    for starts, phases in levels:
+        i = bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ts < phases[i][1]:
+            return phases[i][2]
     return "other"
 
 

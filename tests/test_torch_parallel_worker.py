@@ -142,10 +142,12 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None)
         sinkhorn_step_cuda,
     )
     from otgan_tpu_torch.parallel import matching_matrix as mm
+    from otgan_tpu_torch.utils import tracing
 
     for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
                 layer_boundary):
         mod.reset_launch_counts()
+    tracing.reset_counts()  # the main path's counts, beside the launches
     make = (mm.make_matrix_parallel_single_batch_matcher if single
             else mm.make_matrix_parallel_two_batch_matcher)
     m = make(None, lam, iters, use_pallas=True, precision=precision)(

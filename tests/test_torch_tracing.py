@@ -33,13 +33,13 @@ from otgan_tpu_torch.config import TrainConfig
 from otgan_tpu_torch.data.toy import sample_8gaussians
 from otgan_tpu_torch.engine import Engine
 from otgan_tpu_torch.utils import tracing
-from otgan_tpu_torch.utils.tracing import PHASE_SPANS, SLOTS, summarize, trace_path
+from otgan_tpu_torch.utils.tracing import NESTED_SPANS, PHASE_SPANS, SLOTS, summarize, trace_path
 from portbench import spec
 from tests.test_torch_parallel_worker import StubGraph
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READERS = ("features_device_ms", "match_device_ms", "backward_device_ms", "update_device_ms",
-           "step_device_ms")
+           "step_device_ms", "refeatures_device_ms")
 
 POISONED = 3  # 0-based index of the step whose batch holds a NaN
 
@@ -119,13 +119,17 @@ def _counts(totals):
             for kind, slots in totals.items()}
 
 
-def _each_slot(n_gen, n_disc):
-    return {"gen": dict.fromkeys(SLOTS, n_gen), "disc": dict.fromkeys(SLOTS, n_disc)}
+def _each_slot(n_gen, n_disc, nested=0):
+    """Counts of each slot: ``n_gen`` and ``n_disc`` steps, ``nested`` marks a
+    step in ``refeatures`` (none where a step takes its whole batch)."""
+    return {kind: {slot: n * nested if slot in NESTED_SPANS else n for slot in SLOTS}
+            for kind, n in (("gen", n_gen), ("disc", n_disc))}
 
 
 def test_eager_marks_count_each_step_once(toy_engine):
     """Two eager cycles and a lone critic step: each kind counts one in each
-    of its five slots a step, and its four phases fit inside its steps."""
+    of its five slots a step and none in ``refeatures`` (whole batches), and
+    its four phases fit inside its steps."""
     eng, state, xs = toy_engine
     state, _ = eng.cycle_step(state, xs[:3])
     state, _ = eng.cycle_step(state, xs[3:6])
@@ -238,6 +242,86 @@ def test_summarize_and_step_gaps_read_a_replay_by_its_marks(tmp_path):
     assert all(ms < 0.01 for _, ms in idle[2:])  # between the kernels of a step
 
 
+def test_summarize_gives_a_kernel_to_the_innermost_slot(tmp_path):
+    """A generator step whose loss_backward holds two microbatches' second
+    forwards (``refeatures`` marks): a kernel between those marks goes to
+    ``refeatures``, one between them and loss_backward's own marks to
+    ``loss_backward``; the marks count each slot's intervals."""
+    ev = _marks("gen", "step", (0, 99))
+    for slot, (a, b, dur) in (("features", (4, 20, 10)), ("match", (20, 50, 20)),
+                              ("loss_backward", (50, 90, 2)), ("update", (90, 97, 4))):
+        ev += _marks("gen", slot, (a, b))
+        ev.append(_kernel(f"{slot}_kernel", a + 2, dur))
+    for a in (55, 70):  # each microbatch: its forward (8 us), then its backward (5 us)
+        ev += _marks("gen", "refeatures", (a, a + 10))
+        ev.append(_kernel("conv_fprop", a + 1, 8))
+        ev.append(_kernel("conv_dgrad", a + 11, 5))
+    summary = summarize(_trace(tmp_path / "trace.json", ev))
+    phase_ms = summary["phase_device_ms"]
+    assert phase_ms["refeatures"] == pytest.approx(0.016)
+    assert phase_ms["loss_backward"] == pytest.approx(0.012)  # its own 2 us and the two backwards
+    assert phase_ms["features"] == pytest.approx(0.01) and phase_ms["other"] == pytest.approx(
+        (2 * 5 + 2 * 2) * 1e-3)  # the marks
+    assert summary["marks"]["gen.refeatures"] == [2, pytest.approx(0.02)]
+    assert summary["marks"]["gen.loss_backward"] == [1, pytest.approx(0.04)]
+
+
+def _densenet_engine(accum: int, layers: int = 2):
+    torch.manual_seed(0)
+    eng = Engine(TrainConfig(model="densenet", layers_per_block=layers, filters_per_layer=4,
+                             batch_size=8, nr_sinkhorn_iter=3, grad_accum=accum), "cpu")
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), np.uint8))
+               for _ in range(3)]
+    state, _ = eng.init_state(1, batches[0])
+    return eng, state, batches[1:]
+
+
+@pytest.mark.parametrize("accum", [1, 4])
+def test_microbatches_mark_their_second_forward(accum):
+    """The DenseNet at L = 2 (9 list convs a net), a critic step and a
+    generator step: under ``--grad_accum 4`` each counts 4 ``refeatures``
+    begin/end pairs and 4 ``microbatch`` passes, and concatenates
+    4 x (3 x 9) lists in its features (generator, critic on fakes, critic on
+    data) and 4 x (2 x 9) in its second forwards (critic step: the critic on
+    fakes and on data; generator step: generator and critic); whole
+    batches, none and 3 x 9."""
+    eng, state, xs = _densenet_engine(accum)
+    tracing.reset()
+    before = dict(tracing.counts)
+    state, _ = eng.disc_step(state, xs[0])
+    state, _ = eng.gen_step(state, xs[1])
+    counts = _counts(tracing.device_ms("cpu"))
+    want = _each_slot(1, 1, nested=accum if accum > 1 else 0)
+    assert counts == want
+    per = 9 * (3 * accum + 2 * accum) if accum > 1 else 9 * 3
+    assert {k: tracing.counts[k] - before[k] for k in before} == {
+        "microbatch": 2 * accum if accum > 1 else 0, "dense_concat": 2 * per}
+    totals = tracing.device_ms("cpu")
+    for kind in ("gen", "disc"):
+        assert totals[kind]["refeatures"]["ms"] <= totals[kind]["loss_backward"]["ms"]
+    tracing.reset()
+
+
+def test_dense_concat_counts_each_list_a_conv_concatenates():
+    """At the source's L = F = 16, one critic forward and one generator
+    forward each concatenate 51 lists (each of the critic's convs but its
+    first, which reads the images; each of the generator's); the DCGAN's
+    nets, whose convs read single tensors, count none. (A whole-batch step
+    counts no microbatch: ``test_microbatches_mark_their_second_forward``.)"""
+    from otgan_tpu_torch.models import dcgan, densenet
+
+    before = dict(tracing.counts)
+    with torch.no_grad():
+        densenet.make_discriminator()(torch.zeros(1, 32, 32, 3))
+        assert tracing.counts["dense_concat"] - before["dense_concat"] == 51
+        densenet.make_generator()(densenet.sample_latent(1))
+        assert tracing.counts["dense_concat"] - before["dense_concat"] == 102
+        before = dict(tracing.counts)
+        dcgan.make_discriminator()(dcgan.make_generator()(dcgan.sample_latent(1)))
+    assert dict(tracing.counts) == before
+
+
 def test_epoch_record_holds_device_ms(tmp_path, monkeypatch):
     """The toy at 1:1 for two epochs of 3 batches: each epoch's record
     carries the ms a step of each kind and slot, its phases within its
@@ -257,12 +341,15 @@ def test_epoch_record_holds_device_ms(tmp_path, monkeypatch):
             assert 0 < sum(slots[p] for p in PHASE_SPANS) <= slots["step"], (kind, slots)
 
 
-def _profiled(steps):
-    """``profiled_device_ms`` with ``steps`` generator steps of 1, 2, 3, 4
-    and 11 ms in the five slots."""
-    ms = dict(zip(SLOTS, (1.0, 2.0, 3.0, 4.0, 11.0)))
-    zero = {slot: {"ms": 0.0, "count": 0} for slot in SLOTS}
-    return {"gen": {s: {"ms": steps * v, "count": steps} for s, v in ms.items()}, "disc": zero}
+# ms a step in each slot of ``_profiled``
+SLOT_MS = dict(zip(SLOTS, (1.0, 2.0, 3.0, 4.0, 11.0, 1.5)))
+
+
+def _profiled(steps, slots=SLOTS):
+    """``profiled_device_ms`` with ``steps`` generator steps of 1, 2, 3, 4,
+    11 and 1.5 ms in ``slots``."""
+    zero = {slot: {"ms": 0.0, "count": 0} for slot in slots}
+    return {"gen": {s: {"ms": steps * SLOT_MS[s], "count": steps} for s in slots}, "disc": zero}
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -278,6 +365,17 @@ def test_mark_readers_give_nothing_without_the_counters(name, monkeypatch):
     assert read(None) is None
     monkeypatch.setattr(tracing, "profiled_device_ms", lambda device=None: _profiled(3))
     slot = {"backward_device_ms": "loss_backward"}.get(name, name[:-len("_device_ms")])
-    assert read(None) == pytest.approx(dict(zip(SLOTS, (1.0, 2.0, 3.0, 4.0, 11.0)))[slot])
+    assert read(None) == pytest.approx(SLOT_MS[slot])
     monkeypatch.delattr(tracing, "profiled_device_ms")
+    assert read(None) is None
+
+
+def test_refeatures_reader_gives_nothing_without_the_slot(monkeypatch):
+    """A program whose tally has no ``refeatures`` slot (the five slots of
+    an older one) reads None, and does not raise."""
+    read = spec.load_reader(ROOT, "refeatures_device_ms")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(tracing, "profiled_device_ms",
+                        lambda device=None: _profiled(3, SLOTS[:5]))
     assert read(None) is None
