@@ -230,6 +230,12 @@ Run from the root of a checkout, it
    the bias gradient within 1e-5 of its terms' magnitudes; the device ms of
    each direction, the plain chain's (forward and backward through
    autograd) and the bound (bytes over the card's bandwidth);
+17. (before 11) the DenseNet's slab operators (``csrc/dense_boundary.cu``) at
+   ``densenet.b5000``'s shapes (1250 rows, L = F = 16), each net's blocks:
+   slab, gathered inputs and gradients bit for bit the plain versions' on
+   the same card tensors, then once forward and backward: device ms, the
+   bound (bytes over the card's bandwidth) and the layers' chain's ms on
+   the same inputs;
 11. prints one ``{"kernels": [...]}`` JSON line: per kernel its launches on
    its path (``launches_from`` says which run), its error against the
    plain version, its time, the plain version's time, the bound for the
@@ -1241,18 +1247,202 @@ def boundary_phase(card: str) -> list:
     return entries
 
 
+DENSE_ROWS = 1250  # densenet.b5000's microbatch: --grad_accum 4 at batch 5000
+
+
+def dense_blocks(net: str, L: int = 16, F: int = 16) -> list:
+    """Each dense block of the DenseNet's ``net`` ("critic" or "generator")
+    at L, F: (pixels, element widths, its first elements' kinds ("conv"
+    with a bias, "dense", "noise"), and for each list conv and the
+    transition the conv's (upsample, stride))."""
+    blocks, first = [], 2 * F
+    for k in range(3):
+        if net == "critic":
+            size, widths, kinds = 32 >> k, [first] + [F] * L, ["conv"]
+            convs = [(False, 1)] * L + [(False, 2)]
+            first = (first + L * F) // 2
+        else:
+            size, widths = 8 << k, [F if k == 0 else first, F] + [F] * L
+            kinds = ["dense" if k == 0 else "conv", "noise"]
+            convs = [(False, 1)] * L + [(k < 2, 1)]
+            first = (sum(widths)) // 2
+        blocks.append((size, widths, kinds, convs))
+    return blocks
+
+
+def time_dense_block(size: int, widths: list, kinds: list, convs: list, n: int,
+                     bw: float) -> dict:
+    """One block's slab operators as a pass of the net runs them: the slab
+    writes and each conv's gather (forward), then the scatters from the
+    transition down (its a store) and each conv's gather again for its
+    weight gradient (backward); device ms of each direction, the bound
+    (bytes over ``bw``: each input read once, each output written once),
+    and the layers' chain on the same elements: ``Conv2d._input`` (and the
+    uneven SAME pad) for every conv, forward and backward through
+    autograd into the float32 elements. First each kernel is held to its
+    plain version on the same card tensors: the slab, every conv's
+    gathered input and every element's gradient bit for bit, or it raises."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F_
+
+    from otgan_tpu_torch.nn import dense_boundary as db
+    from otgan_tpu_torch.nn.layers import Conv2d
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    first = len(kinds)
+    block = db.Block(torch.empty(0, device="cuda"), n, size, size, widths)
+    ys = []
+    for e, f in enumerate(widths):
+        kind = kinds[e] if e < first else "conv"
+        if kind == "noise":
+            ys.append((torch.rand(n, size, size, f, generator=gen, device="cuda") * 2 - 1, None))
+        else:
+            shape = (n, size * size * f) if kind == "dense" else (n, size, size, f)
+            ys.append((torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16),
+                       torch.randn(shape[1:] if kind == "dense" else (f,), generator=gen,
+                                   device="cuda")))
+    layers = []
+    for j, (up, stride) in enumerate(convs):
+        k = first + j if j < len(convs) - 1 else len(widths)
+        layers.append(Conv2d(block.offsets[k], 16, stride=(stride, stride), upsample=up,
+                             pre_activation="crelu", compute_dtype=torch.bfloat16))
+    geos = [db.geometry(block, first + j if j < len(convs) - 1 else len(widths), c)
+            for j, c in enumerate(layers)]
+    biggest = max(int(torch.Size(db._input_shape(block, g)).numel()) for g in geos)
+    buf = (1e-3 * torch.randn(biggest, generator=gen, device="cuda")).to(torch.bfloat16)
+    grads = [buf[:torch.Size(db._input_shape(block, g)).numel()].view(db._input_shape(block, g))
+             for g in geos]
+
+    def forward():
+        for e, (y, b) in enumerate(ys):
+            db.write_cuda(block, e, y, b)
+        for g in geos:
+            db.gather_cuda(block, g)
+
+    def scatters(blk):
+        blk.acc = [None] * len(widths)
+        for g, gx in zip(reversed(geos), reversed(grads)):
+            db._scatter(blk, g, gx, [kinds[e] != "noise" if e < first else True
+                                     for e in range(g.k)])
+
+    def backward():
+        scatters(block)
+        for g in geos:
+            db.gather_cuda(block, g)
+
+    def same_bits(a, b):
+        if a is None or b is None:
+            return a is b
+        ints = torch.int16 if a.element_size() == 2 else torch.int32
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints),
+                                                                          b.view(ints))
+
+    forward()
+    ref = db.Block(torch.empty(0, device="cuda"), n, size, size, widths)
+    for e, (y, b) in enumerate(ys):
+        db.write_plain(ref, e, y, b)
+    held = {"slab": same_bits(block.slab, ref.slab),
+            "gathers": all(same_bits(db.gather_cuda(block, g), db.gather_plain(ref, g))
+                           for g in geos)}
+    scatters(block)
+    with mock.patch.object(db, "scatter_cuda", db.scatter_plain):  # the operator, plain
+        scatters(ref)
+    held["scatters"] = all(same_bits(a, r) for a, r in zip(block.acc, ref.acc))
+    if not all(held.values()):
+        raise AssertionError(f"dense boundary block at {size} pixels, {len(widths)} elements, "
+                             f"{n} rows: a kernel differs from its plain version {held}")
+    del ref
+    block.acc = [None] * len(widths)
+    torch.cuda.empty_cache()
+
+    def plain():
+        els = [(y.float() + b if b is not None else y).reshape(n, size, size, -1)
+               .requires_grad_() for y, b in ys]
+        outs = []
+        for conv, g in zip(layers, geos):
+            x = conv._input(els[:g.k])
+            pt, pb, pl, pr = g.pads
+            outs.append(F_.pad(x, (0, 0, pl, pr, pt, pb)) if g.padded else x)
+        torch.autograd.grad(outs, [e for e, (_, b) in zip(els, ys) if b is not None], grads)
+
+    pix = n * size * size
+    fwd = sum(pix * f * (2 + (4 if b is None else 2)) for f, (_, b) in zip(widths, ys))
+    bwd = 0
+    for g in geos:
+        kc, (_, ho, wo, c2) = block.offsets[g.k], db._input_shape(block, g)
+        fwd += 2 * pix * kc + 2 * n * ho * wo * c2
+        grad_in = 2 * n * g.factor ** 2 * size * size * c2
+        noise = sum(f for e, f in enumerate(widths[:g.k]) if e < first and kinds[e] == "noise")
+        acc = 4 * pix * (kc - noise) * (1 if g is geos[-1] else 2)
+        bwd += grad_in + 2 * pix * kc + acc + 2 * pix * kc + 2 * n * ho * wo * c2
+    res = {"pixels": size, "widths": len(widths), "bitwise_equal": True,
+           "fwd_ms": cuda_ms(forward, reps=5),
+           "bwd_ms": cuda_ms(backward, reps=5), "bound_fwd_ms": fwd / bw * 1e3,
+           "bound_bwd_ms": bwd / bw * 1e3}
+    block.acc = [None] * len(widths)
+    torch.cuda.empty_cache()
+    res["plain_ms"] = cuda_ms(plain, reps=2)
+    return res
+
+
+def dense_phase(card: str) -> list:
+    """Phase 17: the DenseNet's slab operators (``csrc/dense_boundary.cu``) at
+    densenet.b5000's shapes, 1250 rows, L = F = 16: each net's blocks, one
+    pass forward and backward, with the layers' chain's time for the same
+    inputs; each block's kernels first held bit for bit to their plain
+    versions on the same card tensors (``time_dense_block``). Returns the
+    ``kernels`` line's entries, one a net."""
+    import torch
+
+    _, (bw, _) = peaks(torch.cuda.get_device_name(0))
+    entries = []
+    for net in ("critic", "generator"):
+        held = [time_dense_block(*b, DENSE_ROWS, bw) for b in dense_blocks(net)]
+        tot = {k: sum(r[k] for r in held) for k in ("fwd_ms", "bwd_ms", "bound_fwd_ms",
+                                                    "bound_bwd_ms", "plain_ms")}
+        ms, bound = tot["fwd_ms"] + tot["bwd_ms"], tot["bound_fwd_ms"] + tot["bound_bwd_ms"]
+        print(f"dense boundary {net} at {DENSE_ROWS} rows on {card}: forward {tot['fwd_ms']:.3f} "
+              f"ms (bound {tot['bound_fwd_ms']:.3f}), backward {tot['bwd_ms']:.3f} ms (bound "
+              f"{tot['bound_bwd_ms']:.3f}), {100 * bound / ms:.1f}% of the bound; layers' chain "
+              f"{tot['plain_ms']:.3f} ms; blocks {held}", flush=True)
+        entries.append({
+            "name": f"dense_boundary_{net}",
+            "route": "cuda",
+            "source": "otgan_tpu_torch/csrc/dense_boundary.cu",
+            "replaces": None,
+            "replaces_note": "no Pallas kernel: XLA fuses the list rebuild into the conv in the "
+                             "JAX package",
+            "ms": ms, "bound_ms": bound, "plain_ms": tot["plain_ms"],
+            "bitwise_equal": all(r["bitwise_equal"] for r in held),
+            "library_ms": None,
+            "library_null_reason": "no single PyTorch call runs the chain; plain_ms is its "
+                                   "separate kernels",
+            "at": f"{DENSE_ROWS} rows, L = F = 16: one pass of the {net}'s blocks, forward and "
+                  "backward",
+            "held": held,
+        })
+        torch.cuda.empty_cache()
+    return entries
+
+
 def reset_all_counts() -> None:
-    from otgan_tpu_torch.nn import layer_boundary
+    """Zero every counter ``train.kernel_launches()`` reads: the kernels'
+    launches and the main path's counts (``tracing.counts``)."""
+    from otgan_tpu_torch.nn import dense_boundary, layer_boundary
     from otgan_tpu_torch.ops import (
         sinkhorn_cuda,
         sinkhorn_grid_cuda,
         sinkhorn_resident_cuda,
         sinkhorn_step_cuda,
     )
+    from otgan_tpu_torch.utils import tracing
 
     for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
-                layer_boundary):
+                layer_boundary, dense_boundary):
         mod.reset_launch_counts()
+    tracing.reset_counts()
 
 
 def epoch_records(run_dir: str) -> list:
@@ -1263,12 +1453,13 @@ def epoch_records(run_dir: str) -> list:
 def check_tier_path(launches: dict, tier: str, what: str, want=None) -> None:
     """The run launched the ``tier`` kernel (``want`` times, when given)
     and no other Sinkhorn kernel, and no plain version of any kernel (the
-    layer boundaries' kernels run beside every tier; the main path's counts,
-    ``tracing.counts``, are no kernel's)."""
+    layer boundaries' kernels and the DenseNet's slab kernels run beside
+    every tier; the main path's counts, ``tracing.counts``, are no
+    kernel's)."""
     from otgan_tpu_torch.utils.tracing import counts
 
     others = {k: n for k, n in launches.items()
-              if k not in (tier, "layer_boundary", *counts)}
+              if k not in (tier, "layer_boundary", "dense_boundary", *counts)}
     if launches[tier] < 1 or (want is not None and launches[tier] != want) or any(
             others.values()):
         raise AssertionError(f"{what} did not run the {tier} tier alone: {launches}")
@@ -1898,6 +2089,11 @@ def densenet_phase(card: str) -> dict:
     if not all(math.isfinite(r["dist"]) and math.isfinite(r["entropy"]) for r in steps):
         raise AssertionError("non-finite dist or entropy on the DenseNet path")
     check_tier_path(launches, "grid", "the DenseNet path (batch 5000, 6 x 2500^2)", want=6)
+    # each block on slabs: 2676 slab writes, gathers and scatters a generator
+    # step, 2868 a critic step (PERF.md), and more for the epochs' samples
+    if launches["dense_boundary"] < 5 * 2676 + 2868:
+        raise AssertionError(f"the DenseNet path ran {launches['dense_boundary']} slab "
+                             "operators on their kernels, not at least 5 x 2676 + 2868")
     with torch.no_grad():
         imgs = result.state.gen(densenet.sample_latent(4, None, "cuda"))
     if imgs.shape != (4, 32, 32, 3) or not bool(torch.isfinite(imgs).all()):
@@ -2649,11 +2845,14 @@ def leg_report(name: str, leg: dict) -> dict:
     if not fused or not all(fused):
         reasons = [r.get("fused_cycle_reason") for r in recs if "fused_cycle_reason" in r]
         raise AssertionError(f"{name}: the fused cycle did not hold: {fused} {reasons}")
+    from otgan_tpu_torch.utils.tracing import counts
+
     for r in epochs:
         steps = r["step"] - start
         launches = r["launches"]
+        # the main path's counts (tracing.counts: microbatch passes) are no kernel's
         others = {k: n for k, n in launches.items()
-                  if k not in ("col_potential", "layer_boundary") and n}
+                  if k not in ("col_potential", "layer_boundary", *counts) and n}
         if launches["col_potential"] != steps or others:
             raise AssertionError(f"{name}, epoch {r['epoch']}: {steps} steps launched "
                                  f"{launches}; kernel 1 once a step and nothing else expected")
@@ -3301,6 +3500,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     boundaries = boundary_phase(card)
 
+    # ---- 17. the DenseNet's slab operators at densenet.b5000's shapes ----
+    torch.cuda.empty_cache()
+    dense = dense_phase(card)
+
     # ---- 11. the kernels line ----
     no_loop_library = "no single PyTorch call runs n Sinkhorn iterations"
     kernels = [{
@@ -3454,7 +3657,13 @@ def main() -> int:
                                    "grid's generator forward: 101 + 24 in its 3 epochs); "
                                    "layer_boundary_plain must be 0",
                      launches_plain=launches["layer_boundary_plain"])
-    kernels += boundaries
+    for entry in dense:
+        entry.update(launches=dn["launches"]["dense_boundary"],
+                     launches_from="phase 4c: one 5:1 cycle of the DenseNet at batch 5000, "
+                                   "--grad_accum 4, both nets together (each slab write, "
+                                   "gather and scatter); dense_boundary_plain must be 0",
+                     launches_plain=dn["launches"]["dense_boundary_plain"])
+    kernels += boundaries + dense
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

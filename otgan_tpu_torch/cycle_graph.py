@@ -44,7 +44,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from otgan_tpu_torch.nn import layer_boundary
+from otgan_tpu_torch.nn import dense_boundary, layer_boundary
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -57,7 +57,7 @@ from otgan_tpu_torch.utils import tracing
 # the main path's counts
 COUNTERS = (sinkhorn_cuda.launches, sinkhorn_grid_cuda.launches,
             sinkhorn_resident_cuda.launches, sinkhorn_step_cuda.launches,
-            layer_boundary.launches, tracing.counts)
+            layer_boundary.launches, dense_boundary.launches, tracing.counts)
 
 
 class CaptureOutOfMemory(RuntimeError):

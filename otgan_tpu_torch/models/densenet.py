@@ -20,6 +20,14 @@ package's scope order, so parameter names map one to one (``convert.py``,
 checkpoints). Eager PyTorch builds each dense layer's concatenated input
 anew (XLA fuses it into the conv), so the bytes autograd keeps grow with
 ``L^2``; ``--grad_accum`` and ``--remat`` bound them.
+
+At bf16 on the card (``dense_boundary.engages``) each dense block runs on
+one slab (``nn/dense_boundary.py``): every element is rounded into it once,
+each list conv's input is gathered from it, forward and backward, and a
+conv stops before its bias (``pre_bias``), which the slab write or the head
+adds. The carries between stages, and so the save points, are then the
+transition convs' outputs before their bias; values and gradients are the
+plain layers'.
 """
 
 from __future__ import annotations
@@ -29,12 +37,14 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from otgan_tpu_torch.nn import dense_boundary
 from otgan_tpu_torch.nn.layers import (
     Conv2d,
     Dense,
     l2_normalize_rows,
     run_stages,
     save_names,
+    weight_norm_layers,
 )
 
 LATENT_DIM = 100
@@ -78,6 +88,16 @@ class _Flat(nn.Module):
             channels += filters
         return convs, channels
 
+    def _on_slabs(self, inputs, list_convs) -> bool:
+        """Whether this forward's dense blocks run on slabs."""
+        return dense_boundary.engages(inputs, list(weight_norm_layers(self)), list_convs)
+
+
+def _head(x: torch.Tensor) -> torch.Tensor:
+    """CReLU concat, NHWC flatten, row L2 normalisation."""
+    x = torch.relu(torch.cat([x, -x], dim=-1))
+    return l2_normalize_rows(x.reshape(x.shape[0], -1))
+
 
 def _dense_block(convs, xs) -> List[torch.Tensor]:
     """Each conv takes the list of all previous outputs and adds its own."""
@@ -104,6 +124,8 @@ class Discriminator(_Flat):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images (B, 32, 32, 3) -> unit features (B, 16 * 2 * C)."""
+        if self._on_slabs([x], [c for b in self.blocks for c in b] + self.downs):
+            return self._forward_slabs(x)
 
         def stage(k):
             def fn(x):
@@ -112,11 +134,24 @@ class Discriminator(_Flat):
                 return self.downs[k](_dense_block(self.blocks[k], [x]))
             return fn
 
-        def head(x):
-            x = torch.relu(torch.cat([x, -x], dim=-1))
-            return l2_normalize_rows(x.reshape(x.shape[0], -1))
+        return run_stages([(stage(k), (f"disc_d{k + 1}",)) for k in range(3)] + [(_head, ())],
+                          x, self.remat, self.save)
 
-        return run_stages([(stage(k), (f"disc_d{k + 1}",)) for k in range(3)] + [(head, ())],
+    def _forward_slabs(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` with each block on a slab; a stage carries the
+        down conv's output before its bias."""
+
+        def stage(k):
+            def fn(y):
+                first = self.conv2d_0 if k == 0 else self.downs[k - 1]
+                if k == 0:
+                    y = first.pre_bias(y)
+                return dense_boundary.dense_block(self.blocks[k], [(y, first.b)], self.downs[k],
+                                                  y.shape[1:3])
+            return fn
+
+        return run_stages([(stage(k), (f"disc_d{k + 1}",)) for k in range(3)]
+                          + [(lambda y: _head(y.float() + self.downs[2].b), ())],
                           x, self.remat, self.save)
 
 
@@ -142,6 +177,8 @@ class Generator(_Flat):
     def forward(self, noise) -> torch.Tensor:
         """The four noises of :func:`sample_latent` -> NHWC images (B, 32,
         32, 3) in [-1, 1]."""
+        if self._on_slabs(noise, [c for b in self.blocks for c in b] + self.ups):
+            return self._forward_slabs(noise)
         u0, u1, u2, u3 = noise
         F = self.filters
 
@@ -155,6 +192,29 @@ class Generator(_Flat):
         def third(x):
             *block, last = self.blocks[2]
             return torch.tanh(last(_dense_block(block, [x, u3])))
+
+        return run_stages([(first, ("gen_u1",)), (second, ("gen_u2",)), (third, ())],
+                          u0, self.remat, self.save)
+
+    def _forward_slabs(self, noise) -> torch.Tensor:
+        """:meth:`forward` with each block on a slab; a stage carries the up
+        conv's output before its bias."""
+        u0, u1, u2, u3 = noise
+        block = dense_boundary.dense_block
+
+        def first(u):
+            y = self.dense_0.pre_bias(u)
+            return block(self.blocks[0], [(y, self.dense_0.b), (u1, None)], self.ups[0],
+                         u1.shape[1:3])
+
+        def second(y):
+            return block(self.blocks[1], [(y, self.ups[0].b), (u2, None)], self.ups[1],
+                         u2.shape[1:3])
+
+        def third(y):
+            *convs, last = self.blocks[2]
+            y = block(convs, [(y, self.ups[1].b), (u3, None)], last, u3.shape[1:3])
+            return torch.tanh(y.float() + last.b)
 
         return run_stages([(first, ("gen_u1",)), (second, ("gen_u2",)), (third, ())],
                           u0, self.remat, self.save)

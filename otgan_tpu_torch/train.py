@@ -127,7 +127,7 @@ from otgan_tpu_torch.engine import Engine, TrainState
 from otgan_tpu_torch.eval import fid as fid_mod
 from otgan_tpu_torch.eval import inception as inc
 from otgan_tpu_torch.eval.inception_net import InceptionV3
-from otgan_tpu_torch.nn import layer_boundary
+from otgan_tpu_torch.nn import dense_boundary, layer_boundary
 from otgan_tpu_torch.ops import (
     sinkhorn_cuda,
     sinkhorn_grid_cuda,
@@ -194,9 +194,10 @@ def save_samples(engine: Engine, state: TrainState, path: str, seed: int, ema: b
 
 def kernel_launches() -> dict:
     """The Sinkhorn kernels' launch counters, the layer-boundary kernels'
-    (one a forward or backward crossing), their plain versions', and the
-    main path's counts (``tracing.counts``: microbatch passes, list inputs
-    a conv concatenated)."""
+    (one a forward or backward crossing), the DenseNet's slab kernels' (one
+    a slab write, gather or scatter), their plain versions', and the main
+    path's counts (``tracing.counts``: microbatch passes, list inputs a conv
+    concatenated)."""
     return {"col_potential": sinkhorn_cuda.launches["kernel"],
             "col_potential_plain": sinkhorn_cuda.launches["plain"],
             "resident": sinkhorn_resident_cuda.launches["kernel"],
@@ -206,6 +207,8 @@ def kernel_launches() -> dict:
             **{f"local_step_{k}": n for k, n in sinkhorn_step_cuda.launches.items()},
             "layer_boundary": layer_boundary.launches["kernel"],
             "layer_boundary_plain": layer_boundary.launches["plain"],
+            "dense_boundary": dense_boundary.launches["kernel"],
+            "dense_boundary_plain": dense_boundary.launches["plain"],
             **tracing.counts}
 
 

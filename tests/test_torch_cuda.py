@@ -2,8 +2,11 @@
 loop, the row-sharded matcher's local step, the resident whole-loop kernel
 and the grid whole-loop kernel), against their plain PyTorch versions on the
 same logits, the engine's phase marks (``csrc/phase_marks.cu``) in an
-eager, a captured and a profiled cycle, and the DCGAN's layer-boundary
-kernels (``csrc/layer_boundary.cu``) against the plain chain. Every test here needs an NVIDIA GPU and
+eager, a captured and a profiled cycle, the DCGAN's layer-boundary
+kernels (``csrc/layer_boundary.cu``) against the plain chain, and the
+DenseNet's slab kernels (``csrc/dense_boundary.cu``) against their plain
+versions and, in both nets and an engine step, against the layers' chain,
+bit for bit. Every test here needs an NVIDIA GPU and
 ``nvcc`` (a CUDA kernel has no CPU mode) and skips without one. This file
 imports no JAX, so on a machine with a card but without JAX it runs as
 
@@ -20,6 +23,7 @@ at a small aspect ratio.
 """
 
 import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -969,3 +973,329 @@ def test_layer_boundary_counts_a_step(cuda_device, kind):
     torch.cuda.synchronize()
     assert np.isfinite(float(metrics.dist))
     assert lb.launches == {"kernel": 17 if kind == "gen" else 16, "plain": 0}
+
+
+# -- the DenseNet's list-conv boundaries (csrc/dense_boundary.cu) ------------
+
+def _dense_block(device, n, h, w, widths, seed):
+    """A block whose slab holds every element, drawn with zeros of both
+    signs, both signs and a spread of magnitudes."""
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    block = db.Block(torch.empty(0, device=device), n, h, w, widths)
+    s = torch.randn(block.slab.shape, generator=g, device=device)
+    s = s * torch.exp2(torch.randint(-8, 8, s.shape, generator=g, device=device).float())
+    r = torch.rand(s.shape, generator=g, device=device)
+    block.slab.copy_(torch.where(r < 0.05, 0.0, torch.where(r < 0.1, -0.0, s)))
+    return block
+
+
+@pytest.mark.cuda
+def test_dense_boundary_relu_is_the_cards(cuda_device):
+    """The plain versions' relu, which the kernels compute, is PyTorch's on
+    the card bit for bit: a NaN passes, and a zero of either sign gives +0."""
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    v = torch.tensor([-0.0, 0.0, -1.5, 2.0, float("nan"), -float("inf"), float("inf")] * 40,
+                     device=cuda_device).to(torch.bfloat16)
+    for x in (v, -v):
+        assert torch.equal(db._relu(x).view(torch.int16), torch.relu(x).view(torch.int16))
+
+
+def _on_cpu(block):
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    twin = db.Block(torch.empty(0), block.n, block.h, block.w, block.widths)
+    twin.slab.copy_(block.slab.cpu())
+    return twin
+
+
+class _Conv:
+    """The geometry a conv asks of the gather: its SAME pads and upsample."""
+
+    def __init__(self, kernel, stride, upsample):
+        from otgan_tpu_torch.nn.layers import same_padding
+
+        self.k, self.stride, self.upsample = kernel, stride, upsample
+        self.same_pads = lambda h, w: (same_padding(h, kernel, stride)
+                                       + same_padding(w, kernel, stride))
+
+
+# (pixels, element widths, elements a conv takes, kernel, stride, upsample):
+# the cell's block-0 list conv, its down conv, an up conv, widths of every
+# vector width the kernels take, and convs of more elements than one launch
+# takes (two and three runs)
+DENSE_CASES = {
+    "list_32": (32, [32] + [16] * 16, 9, 3, 1, False),
+    "down_32": (32, [32] + [16] * 16, 17, 3, 2, False),
+    "down_16_ragged": (16, [144] + [16] * 16, 17, 3, 2, False),
+    "up_8": (8, [16, 16] + [16] * 16, 18, 3, 1, True),
+    "up_16": (16, [144, 16] + [16] * 16, 18, 3, 1, True),
+    "vec4": (8, [12, 4, 4, 4], 4, 3, 2, False),
+    "vec2": (8, [6, 2, 2], 3, 3, 1, True),
+    "vec1": (5, [3, 1, 1, 1], 4, 3, 2, False),
+    "runs_down": (4, [16] + [8] * 79, 80, 3, 2, False),
+    "runs_up": (4, [8] * 70, 70, 3, 1, True),
+    "runs_vec1": (5, [3] + [1] * 139, 140, 3, 1, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DENSE_CASES))
+def test_dense_boundary_kernels_match_plain(cuda_device, name):
+    """Slab write, gather and scatter (a store, then an add) at the
+    DenseNet's shapes on 64 images and on ragged widths: bit for bit their
+    plain versions on the same values, and the same bits from two runs."""
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    size, widths, k, kernel, stride, up = DENSE_CASES[name]
+    n = 64
+    block = _dense_block(cuda_device, n, size, size, widths, 0)
+    twin = _on_cpu(block)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    # writes: a raw bf16 output with its bias, a float32 noise, a dense row
+    y = torch.randn(n, size, size, widths[1], generator=g, device=cuda_device).to(torch.bfloat16)
+    b = torch.randn(widths[1], generator=g, device=cuda_device)
+    u = torch.rand(n, size, size, widths[-1], generator=g, device=cuda_device) * 2 - 1
+    d = torch.randn(n, size * size * widths[0], generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    bd = torch.randn(size * size * widths[0], generator=g, device=cuda_device)
+    for blk, dev in ((block, cuda_device), (twin, torch.device("cpu"))):
+        db.reset_launch_counts()
+        db._write(blk, 1, y.to(dev), b.to(dev))
+        db._write(blk, len(widths) - 1, u.to(dev), None)
+        db._write(blk, 0, d.to(dev), bd.to(dev))
+        assert db.launches == ({"kernel": 3, "plain": 0} if dev.type == "cuda"
+                               else {"kernel": 0, "plain": 3})
+    assert torch.equal(block.slab.cpu().view(torch.int16), twin.slab.view(torch.int16))
+    geo = db.geometry(block, k, _Conv(kernel, stride, up))
+    x = db.gather_cuda(block, geo)
+    assert torch.equal(x.cpu().view(torch.int16), db.gather_plain(twin, geo).view(torch.int16))
+    gx = (torch.randn(x.shape, generator=g, device=cuda_device)
+          * torch.exp2(torch.randint(-6, 6, x.shape, generator=g, device=cuda_device).float())
+          ).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        accs = [torch.full((n, size, size, f), float("nan"), device=cuda_device)
+                if e % 3 else None for e, f in enumerate(widths[:k])]
+        db.scatter_cuda(block, geo, gx, accs, [True] * k)
+        db.scatter_cuda(block, geo, gx.flip(0).contiguous(), accs, [False] * k)
+        runs.append(accs)
+    want = [None if a is None else torch.empty(a.shape) for a in runs[0]]
+    db.scatter_plain(twin, geo, gx.cpu(), want, [True] * k)
+    db.scatter_plain(twin, geo, gx.flip(0).cpu(), want, [False] * k)
+    for e, (a, a2, w) in enumerate(zip(*runs, want)):
+        if w is not None:
+            assert bool(torch.isfinite(a).all()), e  # every position written
+            assert torch.equal(a.cpu().view(torch.int32), w.view(torch.int32)), e
+            assert torch.equal(a.view(torch.int32), a2.view(torch.int32)), e
+
+
+@pytest.mark.cuda
+def test_dense_boundary_bad_inputs_raise(cuda_device):
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    block = _dense_block(cuda_device, 2, 4, 4, [16, 16, 16], 0)
+    geo = db.geometry(block, 2, _Conv(3, 1, False))
+    y = torch.randn(2, 4, 4, 16, device=cuda_device).to(torch.bfloat16)
+    b = torch.zeros(16, device=cuda_device)
+    x = db.gather_cuda(block, geo)
+    acc = torch.zeros(2, 4, 4, 16, device=cuda_device)
+    for bad in (lambda: db.write_cuda(block, 1, y.float(), b),         # float32 with a bias
+                lambda: db.write_cuda(block, 1, y, None),              # bf16 without
+                lambda: db.write_cuda(block, 1, y[:1], b),             # rows
+                lambda: db.write_cuda(block, 1, y, b[:8]),             # bias shape
+                lambda: db.write_cuda(block, 1, y, b.cpu()),           # bias device
+                lambda: db.write_cuda(block, 1, y.transpose(1, 2), b),  # not contiguous
+                lambda: db.gather_cuda(block, geo._replace(k=4)),      # elements
+                lambda: db.scatter_cuda(block, geo, x[:, 1:].contiguous(), [acc, None],
+                                        [True, True]),                # gradient shape
+                lambda: db.scatter_cuda(block, geo, x, [acc[:, 1:].contiguous(), None],
+                                        [True, True]),                # accumulator shape
+                lambda: db.scatter_cuda(block, geo, x, [acc.double(), None], [True, True])):
+        with pytest.raises(ValueError):
+            bad()
+    cpu = _on_cpu(block)
+    with pytest.raises(ValueError):  # a CPU tensor never launches
+        db.gather_cuda(cpu, geo)
+
+
+def _fingerprint(t: torch.Tensor) -> int:
+    """The bits of ``t`` (zeros of either sign alike, as ``torch.equal``)
+    summed with fixed pseudo-random weights in int64: equal tensors give
+    equal numbers, different ones almost surely not."""
+    flat, total, chunk = t.detach().reshape(-1), 0, 1 << 24
+    for i in range(0, flat.numel(), chunk):  # in chunks: the net's own bytes fill the card
+        bits = (flat[i:i + chunk] + 0).view(
+            torch.int16 if t.element_size() == 2 else torch.int32).long()
+        w = torch.arange(i, i + bits.numel(), device=t.device, dtype=torch.int64)
+        total += int((bits * ((w * 2654435761 + 12345) % 1000003)).sum())
+    return total
+
+
+def _dense_pass(model, kind, inp, critic=None):
+    """One forward and backward at the cell's shapes: the images or
+    features, every parameter gradient (and the images' under a critic),
+    and each conv call's arguments with its input's fingerprint."""
+    import torch.nn.functional as F_
+
+    calls, real = [], F_.conv2d
+
+    def conv2d(x, w, bias=None, stride=1, padding=0, dilation=1, groups=1):
+        calls.append((tuple(x.shape), x.stride(), x.dtype, tuple(w.shape), stride, padding,
+                      dilation, _fingerprint(x), _fingerprint(w)))
+        return real(x, w, bias, stride, padding, dilation, groups)
+
+    with mock.patch.object(F_, "conv2d", conv2d):
+        if kind == "disc":  # two forwards alive, one backward
+            fake, data = inp
+            f_fake, f_dat = model(fake), model(data)
+            w = torch.linspace(-1, 2, f_fake.shape[1], device=f_fake.device)
+            loss = (f_fake * w).sum() - (f_dat * w.flip(0)).sum()
+            out = torch.cat([f_fake, f_dat]).detach()
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        else:  # the generator through a frozen critic
+            x = model(inp)
+            for p in critic.parameters():
+                p.requires_grad_(False)
+            try:
+                f = critic(x)
+                loss = (f * torch.linspace(-1, 2, f.shape[1], device=f.device)).sum()
+                out = x.detach()
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            finally:
+                for p in critic.parameters():
+                    p.requires_grad_(True)
+    return out, grads, calls
+
+
+def _dense_models(device):
+    from otgan_tpu_torch.models import densenet
+    from otgan_tpu_torch.nn.layers import reset_parameters
+
+    models = []
+    for k, make in enumerate((densenet.make_discriminator, densenet.make_generator)):
+        m = make(16, 16, compute_dtype=torch.bfloat16)
+        reset_parameters(m, torch.Generator().manual_seed(k))
+        m.to(device)
+        with torch.no_grad():
+            for p in m.parameters():
+                if p.dim() == 1:
+                    p.add_(0.2 * torch.randn_like(p))
+        models.append(m)
+    return models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["disc", "gen"])
+def test_dense_boundary_model_matches_the_layer_chain(cuda_device, kind):
+    """The bf16 DenseNet (L = F = 16) on 1250 rows, the cell's microbatch, with
+    cuDNN as the engine leaves it: a critic pass (fakes and data alive, one
+    backward) or a generator pass (through the frozen critic) on slabs
+    against the layers' own chain. Every conv call's arguments and input, the
+    features or images and every parameter gradient bit for bit, and the
+    same bits from a second run on slabs. In the generator pass that second
+    run fills the input each frozen critic conv's backward gets, which its
+    data gradient must not read, with NaN."""
+    import gc
+
+    from otgan_tpu_torch.models import densenet
+    from otgan_tpu_torch.nn import dense_boundary as db
+
+    gc.collect()  # earlier tests' cached blocks: the layers' chain fills the card
+    torch.cuda.empty_cache()
+    disc, gen = _dense_models(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    noise = densenet.sample_latent(1250, g, device=cuda_device)
+    if kind == "disc":
+        with torch.no_grad():
+            fake = gen(noise)
+        inp = (fake, torch.rand(1250, 32, 32, 3, generator=g, device=cuda_device) * 2 - 1)
+        model, critic = disc, None
+    else:
+        inp, model, critic = noise, gen, disc
+    got, unread = [], []
+
+    def nan_unread(shape, stride, device):
+        unread.append(shape)
+        return torch.empty_strided(shape, stride, dtype=torch.bfloat16,
+                                   device=device).fill_(float("nan"))
+
+    for run, slabs in enumerate((False, True, True)):
+        db.reset_launch_counts()
+        with mock.patch.object(db, "engages", db.engages if slabs else (lambda *a: False)), \
+                mock.patch.object(db, "_unread", nan_unread if run == 2 else db._unread):
+            out, grads, calls = _dense_pass(model, kind, inp, critic)
+        torch.cuda.synchronize()
+        got.append((out, grads, calls, dict(db.launches)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    (want, want_grads, want_calls, plain), *slab_runs = got
+    assert plain == {"kernel": 0, "plain": 0}
+    names = [n for n, _ in model.named_parameters()]
+    for out, grads, calls, launches in slab_runs:
+        assert launches["plain"] == 0 and launches["kernel"] == (
+            4 * 102 if kind == "disc" else 105 + 102 + 51 + 102), launches
+        assert len(calls) == len(want_calls)
+        bad = [i for i, (a, b) in enumerate(zip(calls, want_calls)) if a != b]
+        assert not bad, [(i, calls[i][:7], calls[i][7] == want_calls[i][7]) for i in bad[:5]]
+        assert torch.equal(out, want)
+        bad = [n for n, a, b in zip(names, grads, want_grads) if not torch.equal(a, b)]
+        assert not bad, bad
+    assert len(unread) == (0 if kind == "disc" else 51)  # every critic conv's backward
+    (_, g1, c1, _), (_, g2, c2, _) = slab_runs
+    assert c1 == c2 and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                            for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+def test_dense_boundary_engine_steps_equal_the_layer_chain(cuda_device):
+    """One critic step and one generator step of the bf16 DenseNet at batch
+    5000, --grad_accum 4, through the engine: the state after each (nets,
+    EMA, Adam's moments) bit for bit the layers' chain's from the same
+    state, and the counts of a step (PERF.md): on slabs 2868 launches a
+    critic step and 2676 a generator step, 1020 list inputs either way."""
+    import gc
+
+    from otgan_tpu_torch.config import TrainConfig
+    from otgan_tpu_torch.engine import Engine
+    from otgan_tpu_torch.nn import dense_boundary as db
+    from otgan_tpu_torch.utils import tracing
+
+    gc.collect()  # earlier tests' cached blocks: this test fills the card
+    torch.cuda.empty_cache()
+    eng = Engine(TrainConfig(model="densenet", batch_size=5000, grad_accum=4,
+                             init_batch_size=500, nr_sinkhorn_iter=50,
+                             fused_cycle=False), cuda_device)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (5000, 32, 32, 3),
+                                                           dtype=np.uint8))
+    results = []
+    # the layers' chain first, while the cache is freshest: it holds the most
+    for slabs in (False, True):
+        state, _ = eng.init_state(1, x[:500])  # on the layers' chain, as --init_batch_size 500
+        db.reset_launch_counts()
+        tracing.reset_counts()
+        counts = []
+        with mock.patch.object(db, "engages", db.engages if slabs else (lambda *a: False)):
+            for step in (eng.disc_step, eng.gen_step):
+                before = dict(db.launches), dict(tracing.counts)
+                state, m = step(state, x)
+                torch.cuda.synchronize()
+                counts.append((db.launches["kernel"] - before[0]["kernel"],
+                               db.launches["plain"] - before[0]["plain"],
+                               tracing.counts["dense_concat"] - before[1]["dense_concat"]))
+                assert np.isfinite(float(m.dist))
+        leaves = [t.detach().clone() for t in (
+            *state.gen.parameters(), *state.disc.parameters(),
+            *torch.utils._pytree.tree_leaves((state.gen_ema, state.gen_opt, state.disc_opt)))
+            if isinstance(t, torch.Tensor)]
+        results.append((leaves, counts))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (want, plain_counts), (got, counts) = results
+    assert counts == [(2868, 0, 1020), (2676, 0, 1020)]
+    assert plain_counts == [(0, 0, 1020), (0, 0, 1020)]
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    assert not bad, (bad[:10], len(got))

@@ -339,5 +339,5 @@ def test_torchrun_cli_two_ranks_rows(tmp_path):
         {"col_potential": 0, "col_potential_plain": 0, "resident": 0, "resident_plain": 0,
          "grid": 0, "grid_plain": 0, "local_step_fused": 0, "local_step_stream": 0,
          "local_step_plain": 5 * steps, "layer_boundary": 0, "layer_boundary_plain": 0,
-         "microbatch": 0, "dense_concat": 0}
+         "dense_boundary": 0, "dense_boundary_plain": 0, "microbatch": 0, "dense_concat": 0}
         for steps in (1, 2)]

@@ -134,7 +134,7 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None)
     """This rank's outputs of the matrix-parallel matcher (kernel path) and
     the launches of its Sinkhorn tiers (``train.kernel_launches``)."""
     from otgan_tpu_torch import train
-    from otgan_tpu_torch.nn import layer_boundary
+    from otgan_tpu_torch.nn import dense_boundary, layer_boundary
     from otgan_tpu_torch.ops import (
         sinkhorn_cuda,
         sinkhorn_grid_cuda,
@@ -145,7 +145,7 @@ def matrix_matcher(rank, size, fa, fb, lam, iters, single=False, precision=None)
     from otgan_tpu_torch.utils import tracing
 
     for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
-                layer_boundary):
+                layer_boundary, dense_boundary):
         mod.reset_launch_counts()
     tracing.reset_counts()  # the main path's counts, beside the launches
     make = (mm.make_matrix_parallel_single_batch_matcher if single

@@ -170,7 +170,7 @@ def test_above_the_grid_ceiling_counts_col_potential_not_local_steps():
     ``col_potential_plain`` in the trainer's launches, and no local-step
     launch of either tier, though the card runs it on the local-step
     kernel."""
-    from otgan_tpu_torch.nn import layer_boundary
+    from otgan_tpu_torch.nn import dense_boundary, layer_boundary
     from otgan_tpu_torch.ops import sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda
     from otgan_tpu_torch.ops.sinkhorn import kernel_tier
     from otgan_tpu_torch.ops.sinkhorn_grid_cuda import H100_LIMITS
@@ -179,7 +179,7 @@ def test_above_the_grid_ceiling_counts_col_potential_not_local_steps():
 
     assert kernel_tier(2641, 2641, H100_LIMITS) == "tiled"
     for mod in (sinkhorn_cuda, sinkhorn_grid_cuda, sinkhorn_resident_cuda, sinkhorn_step_cuda,
-                layer_boundary):
+                layer_boundary, dense_boundary):
         mod.reset_launch_counts()
     tracing.reset_counts()  # the main path's counts, beside the launches
     cost = torch.from_numpy(_cost(11, 2641, 2641, d=8))
